@@ -1,0 +1,188 @@
+"""The whole ported slice: the port's Renderer against the JAX package's
+Renderer and the committed goldens, the UI semantics, and what is not
+ported yet (CPU)."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from test_goldens import _check as check_golden
+from test_goldens import scene
+from test_torch_photon import port_config
+from volumerenderer_tpu import Algorithm as JAlgorithm
+from volumerenderer_tpu import Renderer as JRenderer
+import volumerenderer_tpu_torch as vt
+from volumerenderer_tpu_torch import convert
+
+
+def port_renderer(g, p, c, algorithm, **kw):
+    return vt.Renderer(convert.grid_from_numpy(g), port_config(c),
+                       convert.params_from_numpy(p),
+                       algorithm=vt.Algorithm[algorithm.name], **kw)
+
+
+@pytest.mark.parametrize("steps", [(2,), (8, 3)], ids=["single", "batch"])
+@pytest.mark.parametrize("tier", ["exact", "paired"])
+@pytest.mark.parametrize("algorithm", [JAlgorithm.POINT, JAlgorithm.SPHERE],
+                         ids=["point", "sphere"])
+def test_renderer_matches_jax_renderer(algorithm, tier, steps):
+    """step(2) runs render_step_cached twice; step(8) then step(3) runs
+    one compact-space batch then three single frames.  Images agree to
+    5e-5 absolute (image max ~1): light positions differ by ~1e-5 world
+    units (photon directions' acos/sin/cos ulps) and XLA:CPU contracts
+    some multiply-adds that the port rounds separately."""
+    g, p, c = scene()
+    c = dataclasses.replace(c, gather_eval=tier)
+    rj = JRenderer(g, dataclasses.replace(c, gather_impl="vpu_interpret"), p,
+                   algorithm=algorithm)
+    rt = port_renderer(g, p, c, algorithm)
+    for n in steps:
+        rj.step(n)
+        rt.step(n)
+    assert rt.state.frame_count == int(rj.state.frame_count) == sum(steps)
+    got, want = rt.image(), np.asarray(rj.image())
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert got.max() > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-5)
+    np.testing.assert_array_equal(rt.image_u8().shape, rj.image_u8().shape)
+
+
+@pytest.mark.parametrize("algorithm", [JAlgorithm.POINT, JAlgorithm.SPHERE],
+                         ids=["point", "sphere"])
+def test_renderer_passes_goldens(algorithm):
+    """The port's frames pass the committed goldens: windowed SSIM >= 0.995
+    and max abs error < 5e-3, scored by volumerenderer_tpu.utils.ssim."""
+    g, p, c = scene()
+    r = port_renderer(g, p, c, algorithm)
+    r.step(2)
+    img = r.state.accum.numpy()
+    assert img.max() > 0
+    check_golden(algorithm.name.lower(), img)
+
+
+def test_port_ssim_copy_matches_reference_scorer():
+    from volumerenderer_tpu.utils.ssim import ssim as ref_ssim
+    from volumerenderer_tpu_torch.utils.ssim import ssim
+
+    rs = np.random.RandomState(0)
+    a = rs.rand(40, 30)
+    b = np.clip(a + rs.randn(40, 30) * 0.05, 0, 1)
+    assert ssim(a, b) == ref_ssim(a, b)
+
+
+@pytest.fixture()
+def small():
+    """A small port renderer (the JAX suite's small_renderer scene)."""
+    from volumerenderer_tpu_torch.grid import procedural
+
+    g = procedural.fog_sphere(n=24, center_world=(0.0, 0.0, 10.0),
+                              world_extent=20.0)
+    params = vt.RenderParams.default().replace(
+        camera_pos=(0.0, 0.0, -15.0), light_source_world_pos=(0.0, 0.0, 10.0),
+        scattering_probability=0.4, ray_max_distance=60.0, max_lights=64)
+    config = vt.StaticConfig(width=16, height=12, light_capacity=64,
+                             max_events_per_photon=8, probe_tile=64,
+                             build_tile=64)
+    return vt.Renderer(g, config, params, algorithm=vt.Algorithm.POINT)
+
+
+def test_set_algorithm_resets_and_set_does_not(small):
+    r = small
+    r.step(3)
+    assert r.state.frame_count == 3
+    r.set(absorption_coefficient=0.1)  # slider: no reset
+    assert r.state.frame_count == 3
+    r.step(1)
+    assert r.state.frame_count == 4
+    r.set_algorithm(vt.Algorithm.POINT)  # same algorithm: no reset
+    assert r.state.frame_count == 4
+    r.set_algorithm(vt.Algorithm.SPHERE)
+    assert r.state.frame_count == 0
+    r.step(1)
+    assert r.state.frame_count == 1
+    assert r.image().max() > 0
+
+
+def test_refresh_and_resize_reset(small):
+    r = small
+    r.step(2)
+    first = r.image().copy()
+    r.step(2)
+    r.refresh()
+    assert r.state.frame_count == 0
+    r.step(2)
+    # Frame 1 of a fresh accumulation clears: the image restarts.
+    np.testing.assert_array_equal(r.image(), first)
+    r.resize(20, 10)
+    assert r.state.frame_count == 0 and r.state.accum.shape == (10, 20)
+    r.step(1)
+    assert r.image().shape == (10, 20, 3) and r.image().max() > 0
+    assert r.image_u8().dtype == np.uint8
+
+
+def test_camera_edit_rebuilds_view_light_edit_does_not(small):
+    r = small
+    r.step(1)
+    view = r._view
+    r.set(photon_initial_intensity=50.0)
+    r.step(1)
+    assert r._view is view
+    r.set(camera_pos=(0.0, 1.0, -15.0))
+    r.step(1)
+    assert r._view is not view and r.view_exact
+
+
+@pytest.mark.parametrize("name", ["RAY", "BEAM", "PATH"])
+def test_unported_algorithms_raise(small, name):
+    algo = vt.Algorithm[name]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        small.set_algorithm(algo)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        vt.Renderer(small.grid, small.config, algorithm=algo)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("motion_mode", "coarse"), ("gather_stride", 2),
+    ("compact_build", "host"), ("interpolation", "trilinear"),
+    ("accum_dtype", "uint8"), ("compact_view", False),
+    ("gather_samples", 16),
+])
+def test_unported_config_values_raise(field, value):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        vt.StaticConfig(**{field: value})
+
+
+def test_view_over_budget_raises(small):
+    small.device_view_budget_bytes = 1024
+    with pytest.raises(NotImplementedError, match="host-banded"):
+        small.step(1)
+
+
+def test_cuda_device_requires_cuda(small):
+    """An explicit CUDA device either runs on the card or raises; it never
+    falls back to the CPU."""
+    if torch.cuda.is_available():
+        r = vt.Renderer(small.grid, small.config, small.params,
+                        algorithm=vt.Algorithm.POINT, device="cuda")
+        assert r.grid.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            vt.Renderer(small.grid, small.config, small.params,
+                        algorithm=vt.Algorithm.POINT, device="cuda")
+
+
+def test_import_port_leaves_jax_out():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys, volumerenderer_tpu_torch, "
+            "volumerenderer_tpu_torch.convert, "
+            "volumerenderer_tpu_torch.utils.ssim; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'volumerenderer_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "[]", out.stdout

@@ -1,0 +1,177 @@
+"""Scene and render parameters (twin of volumerenderer_tpu.engine.params).
+
+  * ``RenderParams`` — the UBO fields, held on the host: every scalar is a
+    Python float rounded to f32 (so arithmetic on device tensors sees the
+    reference package's f32 value), vectors are f32 numpy arrays.
+  * ``StaticConfig`` — image size and every capacity that sizes an array,
+    with the reference package's field names and defaults.
+
+Values the port does not cover yet raise ``NotImplementedError`` naming
+the ROADMAP item that will port them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+import numpy as np
+
+
+class Algorithm(enum.IntEnum):
+    """Algorithm ids, same order as the reference enum (src/main.cpp:65-68)."""
+
+    BEAM = 0
+    RAY = 1
+    POINT = 2
+    SPHERE = 3
+    PATH = 4
+
+
+# Algorithm -> the ROADMAP item that ports it; absent = ported.
+UNPORTED_ALGORITHMS = {
+    Algorithm.BEAM: "ROADMAP Queue 1 item 9 (Ray/Beam)",
+    Algorithm.RAY: "ROADMAP Queue 1 item 9 (Ray/Beam)",
+    Algorithm.PATH: "ROADMAP Queue 1 item 11 (PATH)",
+}
+
+
+def check_algorithm(algorithm: Algorithm) -> Algorithm:
+    algorithm = Algorithm(algorithm)
+    if algorithm in UNPORTED_ALGORITHMS:
+        raise NotImplementedError(
+            f"Algorithm.{algorithm.name} is not ported to PyTorch yet: "
+            f"{UNPORTED_ALGORITHMS[algorithm]}"
+        )
+    return algorithm
+
+
+_VEC_FIELDS = ("camera_pos", "light_source_world_pos")
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderParams:
+    """UBO fields (common_bindings.h:19-34), defaults from src/main.cpp:546-559."""
+
+    camera_pos: np.ndarray = (0.0, 20.0, -75.0)
+    # Extension: camera orientation (camera-space +z forward); identity
+    # reproduces the reference's fixed +z look.
+    camera_rotation: np.ndarray = None
+    fov: float = 45.0  # degrees
+    photon_initial_intensity: float = 100.0
+    scattering_probability: float = 0.05
+    absorption_coefficient: float = 0.05
+    max_lights: int = 1000  # runtime cap (<= StaticConfig.light_capacity)
+    ray_max_distance: float = 2500.0
+    ray_marching_step_size: float = 1.0
+    light_source_world_pos: np.ndarray = (-20.0, 15.0, -15.0)
+    beam_radius: float = 0.1
+    light_ray_step_size: float = 0.3
+    radius_falloff: float = 0.5  # plumbed but unused, as in the reference
+
+    def __post_init__(self):
+        put = lambda k, v: object.__setattr__(self, k, v)
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if f.name in _VEC_FIELDS:
+                put(f.name, np.array(v, np.float32).reshape(3))
+            elif f.name == "camera_rotation":
+                put(f.name, np.eye(3, dtype=np.float32) if v is None
+                    else np.array(v, np.float32).reshape(3, 3))
+            elif f.name == "max_lights":
+                put(f.name, int(np.asarray(v)))
+            else:
+                put(f.name, float(np.float32(np.asarray(v))))
+
+    @classmethod
+    def default(cls) -> "RenderParams":
+        return cls()
+
+    def replace(self, **fields) -> "RenderParams":
+        return dataclasses.replace(self, **fields)
+
+
+# StaticConfig value -> the ROADMAP item that ports it.
+_UNPORTED_CONFIG = {
+    ("motion_mode", "coarse"): "ROADMAP Queue 1 item 10 (interactive paths)",
+    ("motion_mode", "truncated"): "ROADMAP Queue 1 item 10 (interactive paths)",
+    ("compact_view", False): "ROADMAP Queue 1 item 10 (slots layout)",
+    ("compact_build", "host"): "ROADMAP Queue 1 item 13 (host-banded build)",
+    ("interpolation", "trilinear"): "ROADMAP Queue 1 item 14 (slice options)",
+    ("accum_dtype", "uint8"): "ROADMAP Queue 1 item 14 (slice options)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class StaticConfig:
+    """Image size and capacities, with the reference package's field
+    names and defaults (see there for each knob).  It holds the fields
+    this slice reads and those whose other values raise; later slices add
+    theirs.  Knobs that only tuned TPU formulations are not carried over."""
+
+    width: int = 1024
+    height: int = 1024
+    num_photons: int = 16  # 1x1x1 dispatch x 4x4 local (src/main.cpp:814)
+    light_capacity: int = 1000
+    max_march_steps: int = 2500
+    max_photon_steps: int = 4096
+    max_events_per_photon: int = 256
+    gather_samples: int = 0
+    compact_view: bool = True
+    # "auto": the compact view is built on the device when its planes fit
+    # Renderer.device_view_budget_bytes (else it raises: the host-banded
+    # build is not ported); "device": always.
+    compact_build: str = "auto"
+    motion_mode: str = "off"
+    gather_stride: int = 1
+    interpolation: str = "nearest"
+    # Point/Sphere light-loop arithmetic:
+    #   "exact"  — one guarded divide per (sample, light), the reference's
+    #              term order (the default);
+    #   "paired" — one divide per 4 lights via a rational combination;
+    #              reassociation-only deviation <= 3e-5 relative.
+    gather_eval: str = "exact"
+    probe_tile: int = 262144  # rays per occupancy-count tile
+    build_tile: int = 65536  # rays per march tile of the view build
+    accum_dtype: str = "float32"
+
+    def __post_init__(self):
+        allowed = {
+            "motion_mode": {"off", "coarse", "truncated"},
+            "compact_build": {"auto", "host", "device"},
+            "gather_eval": {"exact", "paired"},
+            "interpolation": {"nearest", "trilinear"},
+            "accum_dtype": {"float32", "uint8"},
+        }
+        for field, ok in allowed.items():
+            v = getattr(self, field)
+            if v not in ok:
+                raise ValueError(
+                    f"StaticConfig.{field}={v!r} — must be one of {sorted(ok)}"
+                )
+        if self.gather_stride < 1:
+            raise ValueError("StaticConfig.gather_stride must be >= 1")
+        for (field, value), item in _UNPORTED_CONFIG.items():
+            if getattr(self, field) == value:
+                raise NotImplementedError(
+                    f"StaticConfig.{field}={value!r} is not ported to "
+                    f"PyTorch yet: {item}"
+                )
+        if self.gather_stride > 1:
+            raise NotImplementedError(
+                "StaticConfig.gather_stride > 1 is not ported to PyTorch "
+                "yet: ROADMAP Queue 1 item 10 (decimation)"
+            )
+        if self.gather_samples:
+            raise NotImplementedError(
+                "StaticConfig.gather_samples > 0 needs the host-banded "
+                "build, not ported yet: ROADMAP Queue 1 item 13"
+            )
+
+    @property
+    def photon_grid(self) -> int:
+        """Photon thread ids (gid.x, gid.y) for the 4x4 local group."""
+        n = int(self.num_photons**0.5)
+        if n * n != self.num_photons:
+            raise ValueError("num_photons must be a square")
+        return n

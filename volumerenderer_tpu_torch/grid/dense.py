@@ -1,0 +1,180 @@
+"""Bricked dense density volume (twin of volumerenderer_tpu.grid.dense).
+
+  * ``voxels``        (nx, ny, nz) f32 covering the bbox, padded up to the
+                      brick size; voxel (i, j, k) in index space lives at
+                      ``voxels[i - bx, j - by, k - bz]``.
+  * ``brick_occ``     (nx/8, ny/8, nz/8) bool: any voxel in the brick > 0.
+  * ``brick_max``     per-brick max density.
+  * ``brick_occ_dil`` the 3^3 dilation of ``brick_occ``.
+  * affine map        (3, 3) matrix + translation (NanoVDB map semantics).
+
+Out-of-bbox lookups return 0.0.  On a GPU a plain indexed load does what
+the reference package's fetch formulations do, so ``sample_nearest`` is
+one flat load and the brick tables are plain bool-table indexes.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+
+import numpy as np
+import torch
+
+from . import transforms
+
+BRICK = 8
+
+
+@dataclass
+class DenseGrid:
+    voxels: torch.Tensor  # (nx, ny, nz) f32, padded to multiples of BRICK
+    bbox_min: torch.Tensor  # (3,) i64, inclusive, index space
+    bbox_max: torch.Tensor  # (3,) i64, inclusive, index space
+    map_mat: torch.Tensor  # (3, 3) f32 index -> world
+    map_inv: torch.Tensor  # (3, 3) f32 world -> index
+    map_vec: torch.Tensor  # (3,) f32 translation
+    brick_occ: torch.Tensor  # (nbx, nby, nbz) bool
+    brick_max: torch.Tensor  # (nbx, nby, nbz) f32
+    brick_occ_dil: torch.Tensor  # (nbx, nby, nbz) bool, 3^3 dilation of occ
+
+    @property
+    def device(self) -> torch.device:
+        return self.voxels.device
+
+    def world_to_index(self, p):
+        return transforms.world_to_index(self.map_inv, self.map_vec, p)
+
+    def index_to_world(self, p):
+        return transforms.index_to_world(self.map_mat, self.map_vec, p)
+
+    def world_to_index_dir(self, d):
+        return transforms.world_to_index_dir(self.map_inv, d)
+
+    # bbox corners as floats, reference convention boxMax = max + 1
+    @property
+    def box_min_f(self):
+        return self.bbox_min.to(torch.float32)
+
+    @property
+    def box_max_f(self):
+        return (self.bbox_max + 1).to(torch.float32)
+
+    def _rel(self, pos):
+        """floor(pos) relative to the bbox corner, (..., 3) int64."""
+        return torch.floor(pos).to(torch.int64) - self.bbox_min
+
+    def _inside(self, rel, margin: int = 0):
+        """(...) bool: rel within the volume grown by ``margin`` per side."""
+        ok = torch.all(rel >= -margin, dim=-1)
+        for a, n in enumerate(self.voxels.shape):
+            ok = ok & (rel[..., a] < n + margin)
+        return ok
+
+    def _clamp(self, rel):
+        return torch.stack(
+            [torch.clamp(rel[..., a], 0, n - 1)
+             for a, n in enumerate(self.voxels.shape)], dim=-1,
+        )
+
+    def sample_nearest(self, pos):
+        """Nearest-voxel fetch at floor(pos) for float index-space
+        positions (..., 3); out-of-bbox returns 0."""
+        rel = self._rel(pos)
+        relc = self._clamp(rel)
+        _, ny, nz = self.voxels.shape
+        lin = (relc[..., 0] * ny + relc[..., 1]) * nz + relc[..., 2]
+        return torch.where(self._inside(rel), self.voxels.reshape(-1)[lin], 0.0)
+
+    def brick_occupancy_dilated_at(self, pos):
+        """1-brick-dilated occupancy at float index positions (..., 3).
+
+        True iff floor(pos)'s brick or any 3^3 neighbour is occupied.
+        Out-of-volume positions within one brick of the volume read the
+        nearest boundary brick (a conservative superset)."""
+        rel = self._rel(pos)
+        relb = self._clamp(rel) // BRICK
+        occ = self.brick_occ_dil[relb[..., 0], relb[..., 1], relb[..., 2]]
+        return occ & self._inside(rel, BRICK)
+
+    def to(self, device) -> "DenseGrid":
+        return DenseGrid(**{
+            f.name: getattr(self, f.name).to(device) for f in fields(self)
+        })
+
+
+def occupied_bbox(grid: DenseGrid):
+    """Index-space AABB of the occupied bricks (host-side): (min corner,
+    max corner exclusive) as f32 numpy arrays, or None for an empty volume.
+    Marches clipped to it are bit-identical to full-bbox marches."""
+    occ = grid.brick_occ.cpu().numpy()
+    if not occ.any():
+        return None
+    idx = np.argwhere(occ)
+    lo = idx.min(axis=0) * BRICK
+    hi = (idx.max(axis=0) + 1) * BRICK
+    bmin = grid.bbox_min.cpu().numpy()
+    return (bmin + lo).astype(np.float32), (bmin + hi).astype(np.float32)
+
+
+def _pad_to_brick(a: np.ndarray) -> np.ndarray:
+    pads = [(0, (-s) % BRICK) for s in a.shape]
+    if any(p[1] for p in pads):
+        a = np.pad(a, pads)
+    return a
+
+
+def brick_tables(padded: np.ndarray):
+    """(brick_max, occ, 3^3-dilated occ) of a brick-padded volume."""
+    nb = tuple(s // BRICK for s in padded.shape)
+    bricks = padded.reshape(nb[0], BRICK, nb[1], BRICK, nb[2], BRICK)
+    brick_max = bricks.max(axis=(1, 3, 5)).astype(np.float32)
+    occ = brick_max > 0.0
+    dil = occ.copy()
+    for axis in range(3):
+        shifted_f = np.zeros_like(dil)
+        shifted_b = np.zeros_like(dil)
+        sl = [slice(None)] * 3
+        sf = [slice(None)] * 3
+        sl[axis], sf[axis] = slice(1, None), slice(None, -1)
+        shifted_f[tuple(sl)] = dil[tuple(sf)]
+        shifted_b[tuple(sf)] = dil[tuple(sl)]
+        dil = dil | shifted_f | shifted_b
+    return brick_max, occ, dil
+
+
+def from_dense(
+    values: np.ndarray,
+    bbox_min=(0, 0, 0),
+    voxel_size: float = 1.0,
+    translation=(0.0, 0.0, 0.0),
+    map_mat: np.ndarray | None = None,
+    *,
+    device="cpu",
+) -> DenseGrid:
+    """Build a DenseGrid on ``device`` from a dense numpy density array.
+
+    ``values[i, j, k]`` is the density at index ``bbox_min + (i, j, k)``.
+    The map defaults to uniform ``voxel_size`` scaling plus
+    ``translation``."""
+    values = np.ascontiguousarray(values, np.float32)
+    if values.ndim != 3:
+        raise ValueError(f"expected 3-D density array, got shape {values.shape}")
+    bbox_min = np.asarray(bbox_min, np.int64)
+    bbox_max = bbox_min + np.asarray(values.shape, np.int64) - 1
+    padded = _pad_to_brick(values)
+    brick_max, occ, dil = brick_tables(padded)
+    if map_mat is None:
+        map_mat = np.eye(3, dtype=np.float32) * np.float32(voxel_size)
+    map_mat = np.asarray(map_mat, np.float32)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return DenseGrid(
+        voxels=t(padded),
+        bbox_min=t(bbox_min),
+        bbox_max=t(bbox_max),
+        map_mat=t(map_mat),
+        map_inv=t(np.linalg.inv(map_mat).astype(np.float32)),
+        map_vec=t(np.asarray(translation, np.float32)),
+        brick_occ=t(occ),
+        brick_max=t(brick_max),
+        brick_occ_dil=t(dil),
+    )
