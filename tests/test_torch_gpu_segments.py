@@ -1,0 +1,117 @@
+"""The CUDA segment kernels against their plain PyTorch versions on the card.
+
+This file imports neither JAX nor the JAX package, so it also runs on a
+machine with only PyTorch for CUDA (tests/conftest.py imports JAX, so skip
+it there):
+
+    python -m pytest tests/test_torch_gpu_segments.py -m gpu --noconftest -q
+
+Without a GPU every test skips.  The inputs hold the kernels' edge cases:
+segments of zero length, of ns = 0 and of ns % 4 != 0, one of more than
+512 sub-lights, a valid range with start > 0 and an odd count, samples on
+a sub-light (a Beam centre), inside a beam and far along a segment's line.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from volumerenderer_tpu_torch.ops.kernels import gather_segments as tseg
+
+CP, RC, STEP, RADIUS = 24, 2048, 0.3, 0.25
+VARIANTS = (
+    [("discrete", dict(sphere_radius=r, paired=p))
+     for r in (None, RADIUS) for p in (False, True)]
+    + [("analytic", dict(sphere_radius=r, quad_rule=rule, paired=p))
+       for r, rule in ((None, "midpoint"), (RADIUS, "midpoint"),
+                       (RADIUS, "tangent"), (RADIUS, "closed"))
+       for p in (False, True)]
+)
+
+
+def inputs(seed=5):
+    rs = np.random.RandomState(seed)
+    need = np.sort(rs.randint(0, CP + 1, RC))[::-1].astype(np.int32)
+    need[-RC // 8:] = 0
+    planes = [(rs.randn(CP, RC) * 8 + 15).astype(np.float32)
+              for _ in range(3)]
+    w = (rs.rand(CP, RC) * 0.01).astype(np.float32)
+    w[np.arange(CP)[:, None] >= need[None, :]] = 0.0
+    L = 10
+    pf = (rs.randn(L, 3) * 8 + 15).astype(np.float32)
+    pt = (rs.randn(L, 3) * 8 + 15).astype(np.float32)
+    pt[2] = pf[2]  # zero length
+    pt[3] = pf[3] + np.float32([0.2, 0.0, 0.0])  # ns = 0
+    pt[4] = pf[4] + np.float32([0.0, 1.6, 0.0])  # ns = 5
+    pt[5] = pf[5] + np.float32([160.0, 0.0, 0.0])  # 533 sub-lights
+    u = (pt[1] - pf[1]) / np.linalg.norm(pt[1] - pf[1])
+    perp = np.float32([u[1], -u[0], 0.0]) / np.linalg.norm(u[:2])
+    special = [pf[1], pf[1] + u * (3 * STEP), pf[1] + u + perp * 0.1,
+               pf[1] - u * 50.0, pt[1] + u * 50.0]
+    for i, p in enumerate(special):
+        for c in range(3):
+            planes[c][0, i] = p[c]
+    inten = (rs.rand(L) * 30).astype(np.float32)
+    valid = (np.arange(L) >= 1) & (np.arange(L) < 8)  # start 1, count 7
+    return planes + [w, pf, pt, inten, valid], need
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,kw", VARIANTS)
+def test_cuda_kernel_matches_plain_version(kind, kw):
+    """Each kernel against its plain version on the card, same tier: rtol
+    2e-5 (the same terms; only the summation order differs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    arrays, need = inputs()
+    args = [torch.as_tensor(a).cuda() for a in arrays]
+    need = torch.as_tensor(need).cuda()
+    n0 = tseg.launches[kind]
+    if kind == "discrete":
+        got = tseg.gather_segments_discrete_lanes(*args, STEP,
+                                                  lane_need=need, **kw)
+        ref = tseg.gather_segments_discrete_lanes_reference(
+            *args, STEP, lane_need=need, **kw)
+    else:
+        got = tseg.gather_segments_analytic_lanes(*args, lane_need=need, **kw)
+        ref = tseg.gather_segments_analytic_lanes_reference(
+            *args, lane_need=need, **kw)
+    torch.cuda.synchronize()
+    assert tseg.launches[kind] == n0 + 1
+    assert torch.isfinite(got).all() and got.abs().max() > 0
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=2e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_take_more_than_one_chunk():
+    """More than 1024 segments: the kernels re-stage the segment table for
+    each sample and keep one running sum per sample."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    arrays, need = inputs()
+    rs = np.random.RandomState(6)
+    L = 2500
+    pf = (rs.randn(L, 3) * 8 + 15).astype(np.float32)
+    pt = pf + (rs.randn(L, 3) * 0.6).astype(np.float32)
+    inten = (rs.rand(L) * 30).astype(np.float32)
+    valid = np.arange(L) >= 3
+    args = [torch.as_tensor(a).cuda()
+            for a in arrays[:4] + [pf, pt, inten, valid]]
+    need = torch.as_tensor(need).cuda()
+    for kw in (dict(sphere_radius=RADIUS, paired=False),
+               dict(sphere_radius=None, paired=True)):
+        got = tseg.gather_segments_discrete_lanes(*args, STEP,
+                                                  lane_need=need, **kw)
+        ref = tseg.gather_segments_discrete_lanes_reference(
+            *args, STEP, lane_need=need, **kw)
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=2e-5, atol=0)
+    for kw in (dict(sphere_radius=None, paired=True),
+               dict(sphere_radius=RADIUS, quad_rule="closed", paired=True),
+               dict(sphere_radius=RADIUS, quad_rule="tangent", paired=False)):
+        got = tseg.gather_segments_analytic_lanes(*args, lane_need=need, **kw)
+        ref = tseg.gather_segments_analytic_lanes_reference(
+            *args, lane_need=need, **kw)
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=2e-5, atol=0)

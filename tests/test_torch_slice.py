@@ -52,8 +52,9 @@ def test_renderer_matches_jax_renderer(algorithm, tier, steps):
     np.testing.assert_array_equal(rt.image_u8().shape, rj.image_u8().shape)
 
 
-@pytest.mark.parametrize("algorithm", [JAlgorithm.POINT, JAlgorithm.SPHERE],
-                         ids=["point", "sphere"])
+@pytest.mark.parametrize("algorithm", [JAlgorithm.POINT, JAlgorithm.SPHERE,
+                                       JAlgorithm.RAY, JAlgorithm.BEAM],
+                         ids=["point", "sphere", "ray", "beam"])
 def test_renderer_passes_goldens(algorithm):
     """The port's frames pass the committed goldens: windowed SSIM >= 0.995
     and max abs error < 5e-3, scored by volumerenderer_tpu.utils.ssim."""
@@ -137,7 +138,7 @@ def test_camera_edit_rebuilds_view_light_edit_does_not(small):
     assert r._view is not view and r.view_exact
 
 
-@pytest.mark.parametrize("name", ["RAY", "BEAM", "PATH"])
+@pytest.mark.parametrize("name", ["PATH"])
 def test_unported_algorithms_raise(small, name):
     algo = vt.Algorithm[name]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -150,11 +151,27 @@ def test_unported_algorithms_raise(small, name):
     ("motion_mode", "coarse"), ("gather_stride", 2),
     ("compact_build", "host"), ("interpolation", "trilinear"),
     ("accum_dtype", "uint8"), ("compact_view", False),
-    ("gather_samples", 16),
+    ("gather_samples", 16), ("segment_mode", "discrete_expanded"),
 ])
 def test_unported_config_values_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         vt.StaticConfig(**{field: value})
+
+
+def test_default_renderer_renders_ray(small):
+    """Renderer(grid) takes the package defaults: Algorithm.RAY, discrete
+    segments; at a small size it renders a nonzero finite image."""
+    r = vt.Renderer(small.grid)
+    assert r.algorithm is vt.Algorithm.RAY
+    assert r.config.segment_mode == "discrete"
+    r.resize(16, 12)
+    r.set(**{f: getattr(small.params, f) for f in (
+        "camera_pos", "light_source_world_pos", "scattering_probability",
+        "ray_max_distance")})
+    r.step(2)
+    img = r.image()
+    assert img.shape == (12, 16, 3) and np.isfinite(img).all()
+    assert img.max() > 0
 
 
 def test_view_over_budget_raises(small):

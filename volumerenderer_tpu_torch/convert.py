@@ -1,10 +1,11 @@
 """Carry state across from the reference package without importing it.
 
-``grid_from_numpy`` and ``params_from_numpy`` take the fields of the
-reference package's ``DenseGrid`` and ``RenderParams`` — as an object with
-those attributes (the reference objects themselves work, their arrays
-convert through ``np.asarray``) or as a dict — and build the port's
-objects on ``device``, so that both packages compute the same frame.
+``grid_from_numpy``, ``params_from_numpy`` and ``lights_from_numpy`` take
+the fields of the reference package's ``DenseGrid``, ``RenderParams`` and
+``LightArray`` — as an object with those attributes (the reference objects
+themselves work, their arrays convert through ``np.asarray``) or as a dict —
+and build the port's objects on ``device``, so that both packages compute
+the same frame.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from .engine.params import RenderParams
 from .grid.dense import DenseGrid
+from .render.photon import LightArray
 
 _GRID_DTYPES = {
     "voxels": np.float32,
@@ -52,3 +54,25 @@ def params_from_numpy(src) -> RenderParams:
         f.name: np.asarray(_get(src, f.name))
         for f in dataclasses.fields(RenderParams)
     })
+
+
+_LIGHT_DTYPES = {
+    "pos_from": np.float32,
+    "pos_to": np.float32,
+    "intensity": np.float32,
+    "valid": np.bool_,
+    "count": np.int32,
+    "truncated": np.bool_,
+}
+
+
+def lights_from_numpy(src, device="cpu") -> LightArray:
+    """LightArray on ``device`` from the reference lights' fields.  One
+    frame's lights (``count`` a scalar) gain the port's leading frame axis;
+    a batch (leading axis F) keeps it."""
+    arrays = {name: np.array(_get(src, name), dtype)
+              for name, dtype in _LIGHT_DTYPES.items()}
+    if arrays["count"].ndim == 0:
+        arrays = {name: a[None] for name, a in arrays.items()}
+    return LightArray(**{name: torch.as_tensor(a, device=device)
+                         for name, a in arrays.items()})

@@ -17,6 +17,8 @@ import enum
 
 import numpy as np
 
+from ..ops.lights import SMEM_LIGHT_LIMIT
+
 
 class Algorithm(enum.IntEnum):
     """Algorithm ids, same order as the reference enum (src/main.cpp:65-68)."""
@@ -30,8 +32,6 @@ class Algorithm(enum.IntEnum):
 
 # Algorithm -> the ROADMAP item that ports it; absent = ported.
 UNPORTED_ALGORITHMS = {
-    Algorithm.BEAM: "ROADMAP Queue 1 item 9 (Ray/Beam)",
-    Algorithm.RAY: "ROADMAP Queue 1 item 9 (Ray/Beam)",
     Algorithm.PATH: "ROADMAP Queue 1 item 11 (PATH)",
 }
 
@@ -116,6 +116,8 @@ class StaticConfig:
     max_march_steps: int = 2500
     max_photon_steps: int = 4096
     max_events_per_photon: int = 256
+    max_points_per_segment: int = 512  # Ray/Beam sub-light cap per segment
+    expanded_light_capacity: int = 16384  # compacted Ray/Beam sub-light slots
     gather_samples: int = 0
     compact_view: bool = True
     # "auto": the compact view is built on the device when its planes fit
@@ -131,6 +133,25 @@ class StaticConfig:
     #   "paired" — one divide per 4 lights via a rational combination;
     #              reassociation-only deviation <= 3e-5 relative.
     gather_eval: str = "exact"
+    # Ray/VRL + Beam/VBL sub-light handling:
+    #   "discrete"          — the reference's per-lightRayStepSize sub-lights,
+    #                         iterated in the kernel from the segment table
+    #                         (uncapped; the default);
+    #   "discrete_expanded" — the sub-lights materialized and compacted into
+    #                         a point/sphere light array (capped by
+    #                         max_points_per_segment/expanded_light_capacity);
+    #   "analytic"          — the segment integral itself: closed form for
+    #                         Ray, a beam_quadrature_rule quadrature for Beam.
+    segment_mode: str = "discrete"
+    # Segment arithmetic, same contract as gather_eval: "paired" takes one
+    # divide per 4 sub-lights or nodes, or shares the per-segment divides
+    # of two segments (closed-form VRL, closed-rule VBL).
+    segment_eval: str = "exact"
+    beam_quadrature_nodes: int = 16
+    # Beam analytic quadrature: "midpoint" in arclength, Gauss-Legendre in
+    # the "tangent"-transformed variable, or the "closed" antiderivative
+    # (quad nodes ignored).
+    beam_quadrature_rule: str = "midpoint"
     probe_tile: int = 262144  # rays per occupancy-count tile
     build_tile: int = 65536  # rays per march tile of the view build
     accum_dtype: str = "float32"
@@ -140,6 +161,9 @@ class StaticConfig:
             "motion_mode": {"off", "coarse", "truncated"},
             "compact_build": {"auto", "host", "device"},
             "gather_eval": {"exact", "paired"},
+            "segment_mode": {"discrete", "discrete_expanded", "analytic"},
+            "segment_eval": {"exact", "paired"},
+            "beam_quadrature_rule": {"midpoint", "tangent", "closed"},
             "interpolation": {"nearest", "trilinear"},
             "accum_dtype": {"float32", "uint8"},
         }
@@ -161,6 +185,14 @@ class StaticConfig:
             raise NotImplementedError(
                 "StaticConfig.gather_stride > 1 is not ported to PyTorch "
                 "yet: ROADMAP Queue 1 item 10 (decimation)"
+            )
+        if (self.segment_mode == "discrete_expanded"
+                and self.expanded_light_capacity > SMEM_LIGHT_LIMIT):
+            raise NotImplementedError(
+                f"StaticConfig.segment_mode='discrete_expanded' with "
+                f"expanded_light_capacity={self.expanded_light_capacity} > "
+                f"{SMEM_LIGHT_LIMIT} needs the many-light gather (gather_mxu), "
+                "not ported to PyTorch yet: ROADMAP Queue 1 item 12"
             )
         if self.gather_samples:
             raise NotImplementedError(

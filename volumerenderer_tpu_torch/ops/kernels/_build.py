@@ -3,8 +3,9 @@
 Each kernel is a ``csrc/*.cu`` file with a plain C entry point.  At first
 use it is compiled with ``nvcc`` for ``sm_90a`` into
 ``<checkout>/build/kernels/`` under a file name that carries a hash of the
-source, the flags and the compiler, then loaded with ``ctypes``.  A missing
-compiler or a failed build raises.
+source, the flags and the compiler, then loaded with ``ctypes``.  ``build``
+starts one nvcc per missing source, all at once.  A missing compiler or a
+failed build raises.
 """
 
 from __future__ import annotations
@@ -45,35 +46,54 @@ def nvcc_path() -> str:
     )
 
 
+def _so_path(name: str, nvcc: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256()
+    for p in [src, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(nvcc.encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names) -> None:
+    """Compile the missing ``csrc/<name>.cu`` libraries, one nvcc process
+    each, all started together; raises if any fails."""
+    nvcc = nvcc_path()
+    jobs = []
+    for name in names:
+        so = _so_path(name, nvcc)
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        src = CSRC / f"{name}.cu"
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        jobs.append((src, so, tmp, proc))
+    failed = []
+    for src, so, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        so.with_suffix(".log").write_text(out)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed to build {src.name} "
+                          f"(exit {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, so)  # atomic: a reader never sees a partial file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def library(name: str) -> ctypes.CDLL:
     """Build (once per source hash) and load ``csrc/<name>.cu``."""
     if name in _loaded:
         return _loaded[name]
-    src = CSRC / f"{name}.cu"
-    headers = sorted(CSRC.glob("*.cuh"))
-    nvcc = nvcc_path()
-    h = hashlib.sha256()
-    for p in [src, *headers]:
-        h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    h.update(nvcc.encode())
-    so = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    build([name])
+    so = _so_path(name, nvcc_path())
     log = so.with_suffix(".log")
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
-        )
-        log.write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed to build {src.name} (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, so)  # atomic: a reader never sees a partial file
     build_logs[name] = log.read_text() if log.exists() else ""
     lib = ctypes.CDLL(str(so))
     _loaded[name] = lib

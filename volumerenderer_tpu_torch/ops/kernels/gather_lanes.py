@@ -25,7 +25,7 @@ import ctypes
 import torch
 
 from ..lights import FOUR_PI, GUARD
-from ..march import f32
+from ..march import f32, sqrt
 
 TILE_L = 1024  # lane padding quantum of a CompactView
 launches = 0  # kernel launches made by gather_lanes
@@ -84,7 +84,7 @@ def gather_lanes_reference(px, py, pz, wm, l_pos, l_int, start, count, *,
         d2 = dx * dx + dy * dy + dz * dz
         del dx, dy, dz
         if sphere:
-            dist = torch.sqrt(d2)
+            dist = sqrt(d2)
             dd = dist - radius
             d2e = dd * dd
             bad = (d2e < GUARD) | (dist == 0.0)

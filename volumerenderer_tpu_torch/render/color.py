@@ -1,4 +1,4 @@
-"""Color pass of Point/VPL and Sphere/VSL over a compact view (the parts of
+"""Color pass over a compact view (the parts of
 volumerenderer_tpu.render.color on the cached main path).
 
   build (once per camera/volume/march-parameter change):
@@ -8,7 +8,10 @@ volumerenderer_tpu.render.color on the cached main path).
     world-space sample planes + gather weights + per-lane ``lane_need``.
 
   shade (every frame):
-    the lane gather kernel sums w * (sum over lights) per lane; the
+    a lane gather kernel sums w * (sum over lights) per lane: the point or
+    sphere gather for Point/Sphere, and for Ray/Beam the segment gathers
+    (``segment_mode`` "discrete" or "analytic") or the point/sphere gather
+    over the compacted sub-light expansion ("discrete_expanded").  The
     per-ray colors are normalized by lightCount and clamped, and expand to
     the image through ``inv_map``.
 
@@ -29,7 +32,8 @@ import torch
 
 from ..engine.params import Algorithm, RenderParams, StaticConfig
 from ..grid.dense import DenseGrid
-from ..ops import camera, gather as gather_ops, march as march_ops
+from ..ops import camera, gather as gather_ops, lights as lights_ops
+from ..ops import march as march_ops
 from ..ops.kernels.gather_lanes import TILE_L, lane_need_of
 from ..ops.rng import norm3
 from .photon import LightArray
@@ -234,32 +238,65 @@ def build_compact_view_device(
                        n_rays=n_rays, rows=rows, host_syncs=1)
 
 
-def _expanded_lights(lights: LightArray, algorithm: Algorithm, frame: int):
-    """This frame's flat (pos, intensity, valid) light arrays."""
+def _expanded_lights(lights: LightArray, params, algorithm: Algorithm,
+                     config: StaticConfig, frame: int):
+    """This frame's flat (pos, intensity, valid) light arrays: the photon
+    lights for Point/Sphere; for Ray/Beam the sub-light expansion, compacted
+    into ``expanded_light_capacity`` slots."""
+    inten, valid = lights.intensity[frame], lights.valid[frame]
     if algorithm is Algorithm.POINT:
-        pos = lights.pos_to
-    elif algorithm is Algorithm.SPHERE:
-        pos = lights.pos_from
-    else:
-        raise NotImplementedError(
-            f"Algorithm.{algorithm.name} shading is not ported to PyTorch yet"
-        )
-    return pos[frame], lights.intensity[frame], lights.valid[frame]
+        return lights.pos_to[frame], inten, valid
+    if algorithm is Algorithm.SPHERE:
+        return lights.pos_from[frame], inten, valid
+    pos, inten, valid = lights_ops.expand_segments(
+        lights.pos_from[frame], lights.pos_to[frame], inten, valid,
+        params.light_ray_step_size, config.max_points_per_segment,
+    )
+    pos, inten, valid, _dropped = lights_ops.compact_valid(
+        pos, inten, valid, config.expanded_light_capacity)
+    return pos, inten, valid
 
 
 def _ray_radiance(view: CompactView, params, lights, algorithm, config,
                   frame: int):
     """(Rc_total,) weighted per-lane radiance sums, one kernel call per band."""
-    l_pos, l_int, l_valid = _expanded_lights(lights, algorithm, frame)
-    parts = [
-        gather_ops.gather_planes(
-            b.wx, b.wy, b.wz, b.weight, l_pos, l_int, l_valid,
-            sphere=algorithm is Algorithm.SPHERE,
-            radius=params.beam_radius, layout="lanes",
-            lane_need=b.lane_need, paired=config.gather_eval == "paired",
-        )
-        for b in view.bands
-    ]
+    segments = algorithm in (Algorithm.RAY, Algorithm.BEAM)
+    mode = config.segment_mode if segments else None
+    radius = params.beam_radius if algorithm is Algorithm.BEAM else None
+    seg = (lights.pos_from[frame], lights.pos_to[frame],
+           lights.intensity[frame], lights.valid[frame])
+    seg_paired = config.segment_eval == "paired"
+    if mode == "analytic":
+        # The segment integral itself: closed form for Ray, quadrature for
+        # Beam's sphere lights.
+        def shade(b):
+            return gather_ops.gather_segments(
+                b.wx, b.wy, b.wz, b.weight, *seg, sphere_radius=radius,
+                quad_nodes=config.beam_quadrature_nodes,
+                quad_rule=config.beam_quadrature_rule, lane_need=b.lane_need,
+                paired=seg_paired,
+            )
+    elif mode == "discrete":
+        # The reference's sub-lights, walked in the kernel from the segment
+        # table (ray_compute_color.comp:11-24 / beam_compute_color.comp:11-24).
+        def shade(b):
+            return gather_ops.gather_segments_discrete(
+                b.wx, b.wy, b.wz, b.weight, *seg, params.light_ray_step_size,
+                sphere_radius=radius, lane_need=b.lane_need,
+                paired=seg_paired,
+            )
+    else:
+        l_pos, l_int, l_valid = _expanded_lights(lights, params, algorithm,
+                                                 config, frame)
+        sphere = algorithm in (Algorithm.SPHERE, Algorithm.BEAM)
+
+        def shade(b):
+            return gather_ops.gather_planes(
+                b.wx, b.wy, b.wz, b.weight, l_pos, l_int, l_valid,
+                sphere=sphere, radius=params.beam_radius, layout="lanes",
+                lane_need=b.lane_need, paired=config.gather_eval == "paired",
+            )
+    parts = [shade(b) for b in view.bands]
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
