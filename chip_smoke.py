@@ -6,9 +6,9 @@
 Phases, each printed as one JSON line; any failure exits nonzero:
 
   1. device    the card's name, power limit and compute capability;
-  2. build     nvcc builds csrc/gather_lanes.cu and csrc/gather_segments.cu
-               from this checkout, both at once; ptxas registers, spills and
-               shared memory per kernel template;
+  2. build     nvcc builds csrc/gather_lanes.cu, csrc/gather_segments.cu and
+               csrc/gather_vpu.cu from this checkout, all at once; ptxas
+               registers, spills and shared memory per kernel template;
   3. kernel    the point gather kernel against its plain PyTorch version at
                synthetic shapes (Cp 144, Rc 524288, L in {1, 37, 1000},
                point/sphere, exact/paired, plus edge cases);
@@ -32,12 +32,36 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                of each segment kernel per frame;
   9. segshapes each segment kernel against its plain version on 65,536
                lanes of the live widest band and one frame's segments;
- 10. goldens   the golden scene (64x64 cloud(n=48)) for Point, Sphere, Ray
-               and Beam against tests/goldens at windowed SSIM >= 0.995 and
-               max abs error < 5e-3.
+ 10. slotkernel the 16 slot-kernel templates (csrc/gather_vpu.cu) against
+               their plain versions at synthetic (R, C) = (144, 65536) slot
+               planes, about half of them at zero weight, with the segment
+               edge cases above and a light table of two chunks;
+ 11. uncached  the bench config with compact_view=False (the slots
+               ViewCache) for POINT exact and paired, RAY discrete exact,
+               RAY analytic paired and BEAM analytic closed paired:
+               step(8) warm-up, step(8) timed, slot-kernel launches per
+               frame, peak memory, the image against a cached session at
+               the same frame (rtol 1e-5, atol 1e-7); and one uncached
+               step (march + shade) per frame for POINT exact;
+ 12. slotshapes each run's slot kernel against its plain version on 65,536
+               rays of the live 1080p ViewCache and one frame's lights;
+ 13. drag      the interactive viewer's setup at the bench config (RAY,
+               motion_mode="coarse", first_frame_uncached, settle_chunks
+               4): the first frame (warm), coarse drag frames, the settle
+               ticks, the merged view against a blocking rebuild (rtol
+               2e-6), truncated drag frames (motion_cap 16), each drag
+               path's view build alone, and
+               gather_stride=3 centroid and gauss2 frames with their
+               windowed SSIM against the exact image (printed only);
+ 14. goldens   the golden scene (64x64 cloud(n=48)) for Point, Sphere, Ray
+               and Beam, through the compact view and the slots view,
+               against tests/goldens at windowed SSIM >= 0.995 and max abs
+               error < 5e-3.
 
 The lines before the last are the card's name and power limit as
-nvidia-smi gives them and a JSON object of the kernels; the last line is
+nvidia-smi gives them and a JSON object of the kernels (each with its
+bound: the larger of its f32 operations at 67 TFLOP/s and its bytes at
+3.35 TB/s, counted for this run's inputs); the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
 repository, it exits nonzero and prints no result.
 """
@@ -72,6 +96,35 @@ RAYBEAM_RUNS = (  # (algorithm, segment_mode, segment_eval, quadrature rule)
     ("BEAM", "analytic", "paired", "closed"),
 )
 DEV = "cuda"
+SLOT_RAYS = 65536  # rays of the live ViewCache slice of the slot comparisons
+UNCACHED_RUNS = (  # (algorithm, gather_eval, segment_mode, segment_eval, rule)
+    ("POINT", "exact", "discrete", "exact", "midpoint"),
+    ("POINT", "paired", "discrete", "exact", "midpoint"),
+    ("RAY", "exact", "discrete", "exact", "midpoint"),
+    ("RAY", "exact", "analytic", "paired", "midpoint"),
+    ("BEAM", "exact", "analytic", "paired", "closed"),
+)
+# The card's peaks (H100 SXM data sheet, at a 700 W limit): f32 outside
+# the tensor cores, and device memory.
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+# f32 operations per term, counted from csrc/gather_terms.cuh (each add,
+# subtract, multiply, divide, square root, min, max, compare and select
+# one): per (sample, light) for point and sphere lights, per (sample,
+# sub-light) for the discrete segments, per (sample, segment) for the
+# closed forms, and (per-segment setup, per node) for the quadratures.
+TERM_OPS = {"point": 13, "sphere": 18, "discrete-ray": 20,
+            "discrete-beam": 25, "vrl": 52, "vbl-closed": 100}
+NODE_OPS = {"vbl-midpoint": (17, 15), "vbl-tangent": (50, 20)}
+REPLACES = {
+    "lanes": "volumerenderer_tpu/ops/pallas/gather_lanes.py:63",
+    "discrete": "volumerenderer_tpu/ops/pallas/gather_lanes.py:156",
+    "analytic": "volumerenderer_tpu/ops/pallas/gather_lanes.py:234",
+    "vpu": "volumerenderer_tpu/ops/pallas/gather_vpu.py:38",
+    "segment_discrete": "volumerenderer_tpu/ops/pallas/gather_vpu.py:646",
+    "segment_analytic": "volumerenderer_tpu/ops/pallas/gather_vpu.py:745",
+    "segment_sphere": "volumerenderer_tpu/ops/pallas/gather_vpu.py:568",
+}
 
 
 def emit(phase: str, **fields) -> None:
@@ -114,6 +167,56 @@ def cuda_timed(fn, reps: int = 1):
     return out, start.elapsed_time(end) / reps
 
 
+def bound(ops: float, nbytes: float):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the operations at the f32 peak and the bytes at the memory rate."""
+    t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ops_per_sample(variant: str, lights=None, segs=None, step=0.3,
+                   nodes=16) -> int:
+    """f32 operations one used sample costs: ``lights`` the light count for
+    point/sphere; ``segs`` (pos_from, pos_to, intensity, valid) for the
+    segment variants (discrete: their sub-lights, from this run's table)."""
+    if variant in ("point", "sphere"):
+        return int(lights) * TERM_OPS[variant]
+    from volumerenderer_tpu_torch.ops.kernels import gather_segments as gs
+
+    if variant.startswith("discrete"):
+        ns = gs.discrete_cols(*segs, step)[1]  # 0 outside the valid range
+        return int(ns.sum()) * TERM_OPS[variant]
+    count = int(segs[3].sum())
+    if variant in NODE_OPS:
+        setup, per_node = NODE_OPS[variant]
+        return count * (setup + nodes * per_node)
+    return count * TERM_OPS[variant]
+
+
+def variant_of(algo_name: str, mode: str, rule: str) -> str:
+    if algo_name in ("POINT", "SPHERE"):
+        return algo_name.lower()
+    if mode != "analytic":
+        return "discrete-" + algo_name.lower()
+    return "vrl" if algo_name == "RAY" else f"vbl-{rule}"
+
+
+def lane_bound(wm, lane_need, per_sample_ops, table_bytes):
+    """Bound of a lane-kernel call: the used samples (j < lane_need) read
+    16 B each, lane_need and the per-lane output 8 B a lane."""
+    Cp, Rc = wm.shape
+    used = int(lane_need.clamp(max=Cp).sum())
+    return bound(used * per_sample_ops, 16 * used + 8 * Rc + table_bytes)
+
+
+def slot_bound(wm, per_sample_ops, table_bytes):
+    """Bound of a slot-kernel call: every weight read and every output
+    written (8 B a sample), the live samples' positions (12 B)."""
+    N = wm.numel()
+    live = int((wm != 0).sum())
+    return bound(live * per_sample_ops, 8 * N + 12 * live + table_bytes)
+
+
 def phase_device():
     import torch
 
@@ -131,7 +234,7 @@ def phase_device():
 def phase_build():
     from volumerenderer_tpu_torch.ops.kernels import _build
 
-    names = ("gather_lanes", "gather_segments")
+    names = ("gather_lanes", "gather_segments", "gather_vpu")
     t0 = time.perf_counter()
     _build.build(names)  # one nvcc per source, started together
     dt = time.perf_counter() - t0
@@ -392,13 +495,17 @@ def phase_shapes(r, tier: str):
     err = rel_err(got, ref)
     abs_err = float((got - ref).abs().max())
     tol = RTOL_PAIRED if paired else RTOL_EXACT
+    bound_ms, bound_by = lane_bound(
+        band.weight, band.lane_need, ops_per_sample("point", int(count)),
+        16 * int(count))
     emit("shapes", tier=tier, Cp=band.wx.shape[0], Rc=band.wx.shape[1],
          lights=int(count), max_rel_err=err, max_abs_err=abs_err, tol=tol,
-         ms=ms, plain_ms=plain_ms)
+         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
     if not err <= tol:
         raise AssertionError(f"{tier}: kernel vs plain at the main "
                              f"path's shapes: rel err {err:.3g} > {tol:g}")
-    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def phase_sphere():
@@ -490,15 +597,378 @@ def phase_segment_shapes(r, algo_name: str, mode: str, tier: str, rule: str):
     err, abs_err, ms, plain_ms = run_segment_kernel(
         kind, planes, segs, need, r.params.light_ray_step_size, kw, reps=5)
     gs.launches.update(n0)  # comparison launches are not main-path launches
+    bound_ms, bound_by = lane_bound(planes[3], need, ops_per_sample(
+        variant_of(algo_name, mode, rule), segs=segs,
+        step=r.params.light_ray_step_size,
+        nodes=r.config.beam_quadrature_nodes), 32 * segs[0].shape[0])
     emit("segshapes", algorithm=algo_name, mode=mode, tier=tier, Cp=planes[0].shape[0],
          Rc=planes[0].shape[1], segments=int(lights.count[0]),
          max_rel_err=err, max_abs_err=abs_err, tol=RTOL_SEGMENT, ms=ms,
-         plain_ms=plain_ms)
+         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
     if not err <= RTOL_SEGMENT:
         raise AssertionError(f"{algo_name} {mode} {tier}: segment kernel vs "
                              f"plain at live shapes: rel err {err:.3g} > "
                              f"{RTOL_SEGMENT:g}")
-    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def slot_variants():
+    """(label, kind, keyword arguments) of the 16 slot-kernel templates."""
+    out = []
+    for sphere in (False, True):
+        for paired in (False, True):
+            out.append((f"vpu[{'sphere' if sphere else 'point'},"
+                        f"{'paired' if paired else 'exact'}]", "vpu",
+                        dict(sphere=sphere, radius=0.3, paired=paired)))
+    for label, kind, kw in segment_variants():
+        out.append((label.replace("discrete[", "segment_discrete[").replace(
+            "analytic[vrl", "segment_analytic[vrl").replace(
+            "analytic[vbl", "segment_sphere[vbl"), kind, kw))
+    return out
+
+
+def run_slot_kernel(kind, planes, segs, lights, step, kw, reps=3):
+    """A slot kernel and its plain version on the same inputs: returns
+    (max rel err, max abs err, kernel ms, plain ms)."""
+    from volumerenderer_tpu_torch.ops.kernels import gather_vpu as gv
+
+    if kind == "vpu":
+        lpos, lint, start, count = lights
+        fn = lambda: gv.gather_vpu(*planes, lpos, lint, start, count, **kw)
+        ref_fn = lambda: gv.gather_vpu_reference(
+            *planes, lpos, lint, start, count, max_elems=PLAIN_ELEMS, **kw)
+    elif kind == "discrete":
+        fn = lambda: gv.gather_segments_discrete(*planes, *segs, step, **kw)
+        ref_fn = lambda: gv.gather_segments_discrete_reference(
+            *planes, *segs, step, max_elems=PLAIN_ELEMS, **kw)
+    else:
+        fn = lambda: gv.gather_segments_analytic(*planes, *segs, **kw)
+        ref_fn = lambda: gv.gather_segments_analytic_reference(
+            *planes, *segs, max_elems=PLAIN_ELEMS // 16, **kw)
+    fn()  # first launch outside the timing
+    got, ms = cuda_timed(fn, reps)
+    ref, plain_ms = cuda_timed(ref_fn)
+    if not bool((got[planes[3] == 0] == 0).all()):
+        raise AssertionError("slot kernel: a zero-weight sample is not 0")
+    return rel_err(got, ref), float((got - ref).abs().max()), ms, plain_ms
+
+
+def phase_slot_kernel():
+    import torch
+
+    from volumerenderer_tpu_torch.ops.kernels import gather_vpu as gv
+
+    dev = torch.device(DEV)
+    planes, segs, _need = segment_case(SYNTH_CP, SEG_RC, 11, dev)
+    _, lpos, lint, _, _, _ = synthetic_case(8, 8, 1100, 0, 0, 12, dev)
+    lights = (lpos, lint, 3, 1093)  # two chunks of 1024, count % 4 = 1
+    n0 = dict(gv.launches)
+    zero = float((planes[3] == 0).double().mean())
+    for label, kind, kw in slot_variants():
+        err, abs_err, ms, plain_ms = run_slot_kernel(
+            kind, planes, segs, lights, 0.3, kw)
+        tol = RTOL_PAIRED if kw["paired"] else RTOL_EXACT
+        emit("slotkernel", variant=label, R=SYNTH_CP, C=SEG_RC,
+             zero_weight_share=zero, max_rel_err=err, max_abs_err=abs_err,
+             tol=tol, ms=ms, plain_ms=plain_ms)
+        if not err <= tol:
+            raise AssertionError(f"slot kernel {label} vs plain: rel err "
+                                 f"{err:.3g} > {tol:g}")
+    gv.launches.update(n0)  # comparison launches are not main-path launches
+    del planes
+    torch.cuda.empty_cache()
+
+
+def slot_kind(algo_name: str, mode: str) -> tuple:
+    """(gather_vpu.launches key, run_slot_kernel kind) of a run."""
+    if algo_name in ("POINT", "SPHERE"):
+        return "vpu", "vpu"
+    if mode != "analytic":
+        return "segment_discrete", "discrete"
+    return ("segment_analytic" if algo_name == "RAY" else "segment_sphere",
+            "analytic")
+
+
+def run_label(algo_name, tier, mode, seg_tier, rule) -> str:
+    if algo_name in ("POINT", "SPHERE"):
+        return f"{algo_name} {tier}"
+    return f"{algo_name} {mode} {seg_tier}" + (
+        f" {rule}" if algo_name == "BEAM" and mode == "analytic" else "")
+
+
+def phase_uncached(algo_name, tier, mode, seg_tier, rule):
+    """One bench-config run through the slots view; returns (key, launches,
+    renderer)."""
+    import torch
+
+    import volumerenderer_tpu_torch as vt
+    from volumerenderer_tpu_torch.ops.kernels import gather_vpu as gv
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(segment_mode=mode, segment_eval=seg_tier,
+              beam_quadrature_rule=rule)
+    r = bench_renderer(tier, vt.Algorithm[algo_name], compact_view=False,
+                       **kw)
+    t0 = time.perf_counter()
+    r.step(8)  # the ViewCache build + one batch
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    frames = 8
+    for k in gv.launches:
+        gv.launches[k] = 0
+    t0 = time.perf_counter()
+    r.step(frames)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(gv.launches)
+    peak = torch.cuda.max_memory_allocated()
+    key, _ = slot_kind(algo_name, mode)
+    label = run_label(algo_name, tier, mode, seg_tier, rule)
+    img = r.state.accum
+    if not (bool(torch.isfinite(img).all()) and float(img.max()) > 0):
+        raise AssertionError(f"uncached {label}: image not finite or zero")
+    if launches[key] == 0:
+        raise AssertionError(f"uncached {label}: the slots path launched no "
+                             f"{key} kernel")
+    view_bytes = sum(t.numel() * 4 for t in (r._view.wx, r._view.wy,
+                                             r._view.wz, r._view.weight))
+    # The same frames through the compact view.
+    rc = bench_renderer(tier, vt.Algorithm[algo_name], **kw)
+    rc.step(8)
+    rc.step(frames)
+    torch.cuda.synchronize()
+    ref = rc.state.accum
+    excess = float(((img - ref).abs() - 1e-5 * ref.abs()).max())
+    emit("uncached", run=label, ms_per_frame=dt / frames * 1e3,
+         mrays_per_s=BENCH_W * BENCH_H * frames / dt / 1e6, warmup_s=warm_s,
+         launches=launches,
+         launches_per_frame={k: v / frames for k, v in launches.items()},
+         max_memory_allocated=peak, view_shape=list(r._view.wx.shape),
+         view_bytes=view_bytes,
+         live_samples=int((r._view.weight != 0).sum()),
+         accum_checksum=float(img.double().sum()),
+         vs_cached_max_abs=float((img - ref).abs().max()),
+         vs_cached_ok=excess <= 1e-7)
+    if not excess <= 1e-7:
+        raise AssertionError(f"uncached {label}: image differs from the "
+                             "cached session's beyond rtol 1e-5, atol 1e-7")
+    del rc
+    if (algo_name, tier) == ("POINT", "exact"):
+        phase_uncached_step(r)
+    return key, launches[key], r
+
+
+def phase_uncached_step(r):
+    """use_view_cache=False: march and shade every frame."""
+    import torch
+
+    r.use_view_cache = False
+    r.step(1)
+    torch.cuda.synchronize()
+    frames = 3
+    t0 = time.perf_counter()
+    r.step(frames)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    r.use_view_cache = True
+    emit("uncached_step", run="POINT exact", ms_per_frame=dt / frames * 1e3,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def phase_slot_shapes(r, algo_name, tier, mode, seg_tier, rule):
+    """The run's slot kernel against its plain version on SLOT_RAYS rays of
+    the live ViewCache (around the image centre) and the next frame's
+    lights."""
+    import torch
+
+    from volumerenderer_tpu_torch.ops.kernels import gather_vpu as gv
+    from volumerenderer_tpu_torch.render import photon
+
+    v = r._view
+    a = max(0, min(v.n_rays // 2 - SLOT_RAYS // 2, v.wx.shape[0] - SLOT_RAYS))
+    planes = [t[a:a + SLOT_RAYS].contiguous()
+              for t in (v.wx, v.wy, v.wz, v.weight)]
+    lights = photon.generate_lights(
+        r.grid, r.params, [r.state.frame_count + 1], r.config,
+        max_steps=r._max_steps)
+    segs = (lights.pos_from[0], lights.pos_to[0], lights.intensity[0],
+            lights.valid[0])
+    key, kind = slot_kind(algo_name, mode)
+    variant = variant_of(algo_name, mode, rule)
+    if kind == "vpu":
+        valid = segs[3].to(torch.int32)
+        start, count = int(valid.argmax()), int(valid.sum())
+        light_args = (lights.pos_to[0], lights.intensity[0], start, count)
+        kw = dict(sphere=False, paired=tier == "paired")
+        per_sample = ops_per_sample(variant, lights=count)
+        table = 16 * segs[0].shape[0]
+    else:
+        light_args = None
+        kw = dict(sphere_radius=r.params.beam_radius if algo_name == "BEAM"
+                  else None, paired=seg_tier == "paired")
+        if kind == "analytic":
+            kw.update(quad_rule=rule,
+                      quad_nodes=r.config.beam_quadrature_nodes)
+        per_sample = ops_per_sample(variant, segs=segs,
+                                    step=r.params.light_ray_step_size,
+                                    nodes=r.config.beam_quadrature_nodes)
+        table = 32 * segs[0].shape[0]
+    n0 = dict(gv.launches)
+    err, abs_err, ms, plain_ms = run_slot_kernel(
+        kind, planes, segs, light_args, r.params.light_ray_step_size, kw,
+        reps=5)
+    # The kernel alone on the whole ViewCache, as one frame runs it.
+    full = (v.wx, v.wy, v.wz, v.weight)
+    if kind == "vpu":
+        full_fn = lambda: gv.gather_vpu(*full, *light_args, **kw)
+    elif kind == "discrete":
+        full_fn = lambda: gv.gather_segments_discrete(
+            *full, *segs, r.params.light_ray_step_size, **kw)
+    else:
+        full_fn = lambda: gv.gather_segments_analytic(*full, *segs, **kw)
+    full_fn()
+    _, full_view_ms = cuda_timed(full_fn, 3)
+    gv.launches.update(n0)  # comparison launches are not main-path launches
+    tol = RTOL_PAIRED if kw["paired"] else RTOL_EXACT
+    bound_ms, bound_by = slot_bound(planes[3], per_sample, table)
+    emit("slotshapes", run=run_label(algo_name, tier, mode, seg_tier, rule),
+         kernel=key, R=SLOT_RAYS, C=planes[0].shape[1],
+         live_samples=int((planes[3] != 0).sum()),
+         lights=int(segs[3].sum()), max_rel_err=err, max_abs_err=abs_err,
+         tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+         bound_by=bound_by, full_view_ms=full_view_ms,
+         full_view_live_samples=int((v.weight != 0).sum()))
+    if not err <= tol:
+        raise AssertionError(f"{key} vs plain at the live shapes: rel err "
+                             f"{err:.3g} > {tol:g}")
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def phase_drag():
+    """The interactive viewer's setup at the bench config (RAY discrete):
+    first frame, coarse drag, settle, truncated drag, decimation."""
+    import numpy as np
+    import torch
+
+    import volumerenderer_tpu_torch as vt
+    from volumerenderer_tpu_torch.ops.kernels import gather_segments as gs
+    from volumerenderer_tpu_torch.ops.kernels import gather_vpu as gv
+    from volumerenderer_tpu_torch.render.color import (
+        build_compact_view_device, build_view, required_march_steps,
+    )
+    from volumerenderer_tpu_torch.utils.ssim import ssim
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def zero_counts():
+        for d in (gv.launches, gs.launches):
+            for k in d:
+                d[k] = 0
+
+    ray = vt.Algorithm.RAY
+    positions = [(0.5 * i, 20.0, -75.0) for i in range(1, 7)]
+    fields = {}
+    for attempt in range(2):  # the second session is the warm one
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r = bench_renderer("exact", ray, motion_mode="coarse",
+                           settle_chunks=4)
+        r.first_frame_uncached = True
+        zero_counts()
+        fields["first_frame_ms"] = timed(lambda: r.step(1))
+    first_launches = dict(gv.launches)
+    if not (r._ttff_done and r._view is None
+            and first_launches["segment_discrete"] == 1):
+        raise AssertionError("drag: the first frame did not take the "
+                             "uncached step")
+    fields["first_cached_frame_ms"] = timed(lambda: r.step(1))  # view build
+    zero_counts()
+    drag_ms = []
+    for pos in positions:
+        r.set(camera_pos=pos)
+        drag_ms.append(timed(lambda: r.step(1)))
+    coarse_launches = dict(gv.launches)
+    if r.view_exact or coarse_launches["segment_discrete"] != len(positions):
+        raise AssertionError("drag: coarse frames did not take the "
+                             "uncached coarse step")
+    fields["coarse_drag_ms"] = drag_ms
+    zero_counts()
+    tick_ms = [timed(lambda: r.step(1)) for _ in range(4)]
+    if not r.view_exact or len(r._view.bands) < 4:
+        raise AssertionError("drag: the settle did not land a merged view")
+    fields["settle_tick_ms"] = tick_ms
+    fields["settle_launches"] = {"slots": dict(gv.launches),
+                                 "lanes": dict(gs.launches)}
+    fields["peak_memory_coarse_and_settle"] = torch.cuda.max_memory_allocated()
+    r.refresh()
+    r.step(1)
+    merged = r.state.accum.clone()
+    rb = bench_renderer("exact", ray)
+    rb.set(camera_pos=positions[-1])
+    rb.step(1)
+    blocking = rb.state.accum
+    excess = float(((merged - blocking).abs() - 2e-6 * blocking.abs()).max())
+    fields["merged_vs_blocking_max_abs"] = float(
+        (merged - blocking).abs().max())
+    if not excess <= 1e-7:
+        raise AssertionError("drag: the merged view differs from a blocking "
+                             "rebuild beyond rtol 2e-6, atol 1e-7")
+    del r, rb
+    torch.cuda.empty_cache()
+
+    rt = bench_renderer("exact", ray, motion_mode="truncated")
+    rt.step(1)
+    zero_counts()
+    trunc_ms = []
+    for pos in positions:
+        rt.set(camera_pos=pos)
+        trunc_ms.append(timed(lambda: rt.step(1)))
+    if gs.launches["discrete"] < len(positions) or rt.view_exact:
+        raise AssertionError("drag: truncated frames did not take the "
+                             "identity-order lane path")
+    fields["truncated_drag_ms"] = trunc_ms
+    fields["truncated_launches"] = dict(gs.launches)
+    # Where a drag frame's time goes: each path's view build alone, at the
+    # last drag position (the rest is the photon walk and the gather).
+    clip_box, view_steps = rt._occupied_clip()
+    fields["truncated_build_ms"] = [timed(lambda: build_compact_view_device(
+        rt.grid, rt.params, rt.config,
+        min(rt.config.motion_cap, view_steps, rt._max_steps),
+        clip_box=clip_box, march_cell=rt._march_cell(), order="identity"))
+        for _ in range(3)]
+    coarse_step = float(np.float32(
+        float(rt.params.ray_marching_step_size) * rt.config.motion_stride))
+    coarse_params = rt.params.replace(ray_marching_step_size=coarse_step)
+    coarse_steps = required_march_steps(rt.grid, coarse_step,
+                                        rt.config.max_march_steps)
+    fields["coarse_build_ms"] = [timed(lambda: build_view(
+        rt.grid, coarse_params, rt.config, coarse_steps)) for _ in range(3)]
+    del rt
+
+    exact = bench_renderer("exact", ray)
+    exact.step(8)
+    exact.step(8)
+    want = exact.state.accum.cpu().numpy()
+    del exact
+    for fold in ("centroid", "gauss2"):
+        rd = bench_renderer("exact", ray, gather_stride=3, gather_fold=fold)
+        rd.step(8)
+        ms = timed(lambda: rd.step(8)) / 8
+        img = rd.state.accum.cpu().numpy()
+        fields[f"decimated_{fold}_ms_per_frame"] = ms
+        fields[f"decimated_{fold}_ssim"] = ssim(img, want)
+        fields[f"decimated_{fold}_max_abs"] = float(np.abs(img - want).max())
+        del rd
+    emit("drag", **fields)
+    torch.cuda.empty_cache()
 
 
 def phase_goldens():
@@ -507,8 +977,9 @@ def phase_goldens():
     import volumerenderer_tpu_torch as vt
     from volumerenderer_tpu_torch.utils.ssim import ssim
 
-    for algo in (vt.Algorithm.POINT, vt.Algorithm.SPHERE, vt.Algorithm.RAY,
-                 vt.Algorithm.BEAM):
+    for algo, compact in [(a, c) for c in (True, False) for a in (
+            vt.Algorithm.POINT, vt.Algorithm.SPHERE, vt.Algorithm.RAY,
+            vt.Algorithm.BEAM)]:
         g = vt.grid.procedural.cloud(n=48, seed=7, center_world=(0.0, 20.0, 20.0),
                                      world_extent=70.0, device=DEV)
         params = vt.RenderParams.default().replace(
@@ -516,13 +987,15 @@ def phase_goldens():
             scattering_probability=0.15)
         config = vt.StaticConfig(width=64, height=64, probe_tile=4096,
                                  build_tile=4096, max_events_per_photon=32,
-                                 light_capacity=512, max_points_per_segment=128)
+                                 light_capacity=512, max_points_per_segment=128,
+                                 compact_view=compact)
         r = vt.Renderer(g, config, params, algorithm=algo, device=DEV)
         r.step(2)
         img = r.state.accum.cpu().numpy()
         want = np.load(ROOT / "tests" / "goldens" / f"{algo.name.lower()}.npy")
         s, err = ssim(img, want), float(np.abs(img - want).max())
-        emit("goldens", algorithm=algo.name, ssim=s, max_abs_err=err)
+        emit("goldens", algorithm=algo.name, compact_view=compact, ssim=s,
+             max_abs_err=err)
         if not (s >= 0.995 and err < 5e-3):
             raise AssertionError(f"{algo.name}: golden SSIM {s:.5f}, "
                                  f"max abs err {err:.2e}")
@@ -555,6 +1028,13 @@ def main() -> int:
         segment_runs.append((run, kind, launches,
                              phase_segment_shapes(r, *run)))
         del r
+    phase_slot_kernel()
+    slot_runs = []
+    for run in UNCACHED_RUNS:
+        key, launches, r = phase_uncached(*run)
+        slot_runs.append((run, key, launches, phase_slot_shapes(r, *run)))
+        del r
+    phase_drag()
     phase_goldens()
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
@@ -562,12 +1042,9 @@ def main() -> int:
     kernels = [
         dict(name=f"gather_lanes[{tier}]", route="cuda",
              source="volumerenderer_tpu_torch/csrc/gather_lanes.cu",
-             replaces="volumerenderer_tpu/ops/pallas/gather_lanes.py:63",
-             **v)
+             replaces=REPLACES["lanes"], **v)
         for tier, v in per_tier.items()
     ]
-    replaces = {"discrete": "volumerenderer_tpu/ops/pallas/gather_lanes.py:156",
-                "analytic": "volumerenderer_tpu/ops/pallas/gather_lanes.py:234"}
     for (algo_name, mode, tier, rule), kind, launches, v in segment_runs:
         if kind == "discrete":
             variant = algo_name.lower()
@@ -576,7 +1053,14 @@ def main() -> int:
         kernels.append(dict(
             name=f"gather_segments_{kind}[{variant},{tier}]", route="cuda",
             source="volumerenderer_tpu_torch/csrc/gather_segments.cu",
-            replaces=replaces[kind], launches=launches, **v))
+            replaces=REPLACES[kind], launches=launches, **v))
+    for (algo_name, tier, mode, seg_tier, rule), key, launches, v in slot_runs:
+        variant = variant_of(algo_name, mode, rule).replace("discrete-", "")
+        kernels.append(dict(
+            name=f"{key}[{variant},"
+                 f"{tier if key == 'vpu' else seg_tier}]", route="cuda",
+            source="volumerenderer_tpu_torch/csrc/gather_vpu.cu",
+            replaces=REPLACES[key], launches=launches, **v))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

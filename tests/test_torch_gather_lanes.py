@@ -116,10 +116,14 @@ def test_gather_planes_many_lights_not_ported():
         tgather.gather_planes(T(px), T(py), T(pz), T(w),
                               torch.zeros(L, 3), torch.zeros(L),
                               torch.ones(L, dtype=torch.bool), sphere=False)
-    with pytest.raises(NotImplementedError, match="slots"):
-        tgather.gather_planes(T(px), T(py), T(pz), T(w), torch.zeros(1, 3),
-                              torch.zeros(1), torch.ones(1, dtype=torch.bool),
-                              sphere=False, layout="slots")
+    # layout="slots": the same planes as (R, C) slots, per-sample sums.
+    out = tgather.gather_planes(T(px), T(py), T(pz), T(w), torch.zeros(1, 3),
+                                torch.ones(1), torch.ones(1, dtype=torch.bool),
+                                sphere=False, layout="slots")
+    assert out.shape == px.shape
+    np.testing.assert_array_equal(out.sum(0).numpy(), tgather.gather_planes(
+        T(px), T(py), T(pz), T(w), torch.zeros(1, 3), torch.ones(1),
+        torch.ones(1, dtype=torch.bool), sphere=False).numpy())
 
 
 @pytest.mark.gpu

@@ -376,10 +376,14 @@ def test_wrappers_dispatch_and_validation(case):
     with pytest.raises(ValueError):
         tseg.gather_segments_discrete_lanes(
             *(t.to("meta") for t in args), STEP, lane_need=T(need).to("meta"))
+    # layout="slots": per-sample sums of the same planes, whose sum over
+    # the sample axis is each lane's sum.
     for fn in (tgather.gather_segments, tgather.gather_segments_discrete):
         extra = () if fn is tgather.gather_segments else (STEP,)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            fn(*args, *extra, layout="slots")
+        slots = fn(*args, *extra, layout="slots")
+        assert slots.shape == args[0].shape
+        np.testing.assert_allclose(slots.sum(0).numpy(),
+                                   fn(*args, *extra).numpy(), rtol=2e-6)
 
 
 @pytest.mark.parametrize("kind", ["discrete", "analytic"])

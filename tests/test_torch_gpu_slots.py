@@ -1,0 +1,113 @@
+"""The CUDA slot kernels (csrc/gather_vpu.cu) against their plain PyTorch
+versions on the card.
+
+This file imports neither JAX nor the JAX package, so it also runs on a
+machine with only PyTorch for CUDA (tests/conftest.py imports JAX, so skip
+it there):
+
+    python -m pytest tests/test_torch_gpu_slots.py -m gpu --noconftest -q
+
+Without a GPU every test skips.  The inputs reuse the segment kernels'
+edge cases (test_torch_gpu_segments.inputs: zero-length, ns = 0, ns % 4
+!= 0 and 533-sub-light segments, a range starting at 1 with an odd count,
+samples on a sub-light, at a Beam centre and inside a beam) read as (R, C)
+slots, with zero-weight samples among live ones and all-zero blocks.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_gpu_segments import RADIUS, STEP, inputs
+from volumerenderer_tpu_torch.ops.kernels import gather_vpu as tvpu
+
+KIND = {"vpu": "vpu", "discrete": "segment_discrete"}
+VARIANTS = (
+    [("vpu", dict(sphere=s, radius=RADIUS, paired=p))
+     for s in (False, True) for p in (False, True)]
+    + [("discrete", dict(sphere_radius=r, paired=p))
+       for r in (None, RADIUS) for p in (False, True)]
+    + [("analytic", dict(sphere_radius=r, quad_rule=rule, paired=p))
+       for r, rule in ((None, "midpoint"), (RADIUS, "midpoint"),
+                       (RADIUS, "tangent"), (RADIUS, "closed"))
+       for p in (False, True)]
+)
+
+
+def slot_args(lights=1100):
+    """(R, C) slot planes with every sixth sample and the tail blocks at
+    zero weight, the segment table, and a light table of ``lights`` slots
+    (two shared-memory chunks) with a valid range from 3."""
+    arrays, _need = inputs()
+    planes = [np.ascontiguousarray(a) for a in arrays[:4]]
+    w = planes[3]
+    w.reshape(-1)[::6] = 0.0
+    w[-2:] = 0.0
+    rs = np.random.RandomState(9)
+    lpos = (rs.randn(lights, 3) * 8 + 15).astype(np.float32)
+    lint = (rs.rand(lights) * 20).astype(np.float32)
+    cuda = lambda a: torch.as_tensor(a).cuda()
+    return ([cuda(a) for a in planes], [cuda(a) for a in arrays[4:]],
+            (cuda(lpos), cuda(lint)))
+
+
+def run(kind, planes, segs, lights, kw, plain):
+    if kind == "vpu":
+        fn = tvpu.gather_vpu_reference if plain else tvpu.gather_vpu
+        return fn(*planes, *lights, 3, lights[0].shape[0] - 5, **kw)
+    if kind == "discrete":
+        fn = (tvpu.gather_segments_discrete_reference if plain
+              else tvpu.gather_segments_discrete)
+        return fn(*planes, *segs, STEP, **kw)
+    fn = (tvpu.gather_segments_analytic_reference if plain
+          else tvpu.gather_segments_analytic)
+    return fn(*planes, *segs, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,kw", VARIANTS)
+def test_cuda_slot_kernel_matches_plain_version(kind, kw):
+    """Each kernel against its plain version on the card, same tier: rtol
+    2e-5 (the same terms in the same order; the plain version's
+    vectorised arithmetic may differ by an ulp); zero weight gives 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    planes, segs, lights = slot_args()
+    key = KIND.get(kind) or ("segment_analytic"
+                             if kw["sphere_radius"] is None
+                             else "segment_sphere")
+    n0 = tvpu.launches[key]
+    got = run(kind, planes, segs, lights, kw, plain=False)
+    ref = run(kind, planes, segs, lights, kw, plain=True)
+    torch.cuda.synchronize()
+    assert tvpu.launches[key] == n0 + 1
+    assert got.shape == planes[0].shape
+    assert torch.isfinite(got).all() and got.abs().max() > 0
+    assert not got[planes[3] == 0].any()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=2e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_slot_kernels_take_more_than_one_chunk():
+    """More than 1024 segments: each sample keeps one running sum across
+    the staged chunks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    planes, _, _ = slot_args()
+    rs = np.random.RandomState(6)
+    L = 2500
+    pf = (rs.randn(L, 3) * 8 + 15).astype(np.float32)
+    pt = pf + (rs.randn(L, 3) * 0.6).astype(np.float32)
+    inten = (rs.rand(L) * 30).astype(np.float32)
+    valid = np.arange(L) >= 3
+    segs = [torch.as_tensor(a).cuda() for a in (pf, pt, inten, valid)]
+    for kind, kw in (("discrete", dict(sphere_radius=RADIUS, paired=False)),
+                     ("discrete", dict(sphere_radius=None, paired=True)),
+                     ("analytic", dict(sphere_radius=None, paired=True)),
+                     ("analytic", dict(sphere_radius=RADIUS,
+                                       quad_rule="closed", paired=True))):
+        got = run(kind, planes, segs, None, kw, plain=False)
+        ref = run(kind, planes, segs, None, kw, plain=True)
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=2e-5, atol=0, err_msg=str(kw))

@@ -69,7 +69,7 @@ def test_random_dir_within_ulps():
 ])
 def test_procedural_voxels_and_brick_tables_bit_identical(builder, kw):
     gj = getattr(jproc, builder)(**kw)
-    gt = getattr(tproc, builder)(**kw)
+    gt = getattr(tproc, builder)(**kw, device="cpu")
     for name in ("voxels", "brick_occ", "brick_max", "brick_occ_dil",
                  "map_mat", "map_inv", "map_vec", "bbox_min", "bbox_max"):
         np.testing.assert_array_equal(getattr(gt, name).numpy(),

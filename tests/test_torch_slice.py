@@ -82,7 +82,7 @@ def small():
     from volumerenderer_tpu_torch.grid import procedural
 
     g = procedural.fog_sphere(n=24, center_world=(0.0, 0.0, 10.0),
-                              world_extent=20.0)
+                              world_extent=20.0, device="cpu")
     params = vt.RenderParams.default().replace(
         camera_pos=(0.0, 0.0, -15.0), light_source_world_pos=(0.0, 0.0, 10.0),
         scattering_probability=0.4, ray_max_distance=60.0, max_lights=64)
@@ -148,10 +148,9 @@ def test_unported_algorithms_raise(small, name):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("motion_mode", "coarse"), ("gather_stride", 2),
     ("compact_build", "host"), ("interpolation", "trilinear"),
-    ("accum_dtype", "uint8"), ("compact_view", False),
-    ("gather_samples", 16), ("segment_mode", "discrete_expanded"),
+    ("accum_dtype", "uint8"), ("gather_samples", 16),
+    ("segment_mode", "discrete_expanded"),
 ])
 def test_unported_config_values_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -191,6 +190,28 @@ def test_cuda_device_requires_cuda(small):
         with pytest.raises(RuntimeError, match="CUDA"):
             vt.Renderer(small.grid, small.config, small.params,
                         algorithm=vt.Algorithm.POINT, device="cuda")
+
+
+@pytest.mark.parametrize("build", ["cloud", "fog_sphere", "from_dense"])
+def test_default_device_is_the_card(build):
+    """The grid constructors, and through them Renderer(grid), default to
+    the GPU: without CUDA they raise naming the device argument instead of
+    building on the CPU; device="cpu" opts out."""
+    from volumerenderer_tpu_torch.grid import dense, procedural
+
+    fn = {"cloud": lambda **kw: procedural.cloud(n=16, **kw),
+          "fog_sphere": lambda **kw: procedural.fog_sphere(n=16, **kw),
+          "from_dense": lambda **kw: dense.from_dense(
+              np.ones((8, 8, 8), np.float32), **kw)}[build]
+    if torch.cuda.is_available():
+        g = fn()
+        assert g.device.type == "cuda"
+        assert vt.Renderer(g).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cuda'"):
+            fn()
+    g = fn(device="cpu")
+    assert g.device.type == "cpu" and vt.Renderer(g).device.type == "cpu"
 
 
 def test_import_port_leaves_jax_out():

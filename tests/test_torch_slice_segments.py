@@ -105,7 +105,7 @@ def test_set_algorithm_to_ray_and_beam_resets():
     from volumerenderer_tpu_torch.grid import procedural
 
     g = procedural.fog_sphere(n=24, center_world=(0.0, 0.0, 10.0),
-                              world_extent=20.0)
+                              world_extent=20.0, device="cpu")
     params = vt.RenderParams.default().replace(
         camera_pos=(0.0, 0.0, -15.0), light_source_world_pos=(0.0, 0.0, 10.0),
         scattering_probability=0.4, ray_max_distance=60.0, max_lights=64)

@@ -1,15 +1,18 @@
 """volumerenderer_tpu_torch — the PyTorch/CUDA port of volumerenderer_tpu.
 
 It covers the progressive Point/VPL, Sphere/VSL, Ray/VRL and Beam/VBL
-paths with the cached compact view: procedural grid -> camera rays ->
+paths: the cached compact view (procedural grid -> camera rays ->
 occupancy-sorted lanes -> brick-skipping march -> per frame, the photon
-walk and a lane gather (hand-written CUDA kernels on the GPU, their plain
-PyTorch versions on the CPU) -> accumulation in compact space.
+walk and a lane gather -> accumulation in compact space), the uncached
+slots view (every ray's march, shaded per sample by the slot gathers), and
+the interactive drag, settle and decimation paths.  The gathers are
+hand-written CUDA kernels on the GPU and their plain PyTorch versions on
+the CPU.
 
     from volumerenderer_tpu_torch import Renderer, Algorithm, StaticConfig, grid
 
-    g = grid.procedural.cloud(n=96, device="cuda")
-    r = Renderer(g, StaticConfig(width=512, height=512), device="cuda")
+    g = grid.procedural.cloud(n=96)      # on the GPU; device="cpu" to opt out
+    r = Renderer(g, StaticConfig(width=512, height=512))
     r.step(16)          # Algorithm.RAY, the default
     r.image()           # (H, W, 3) float in [0, 1]
 

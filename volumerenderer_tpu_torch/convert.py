@@ -1,11 +1,12 @@
 """Carry state across from the reference package without importing it.
 
-``grid_from_numpy``, ``params_from_numpy`` and ``lights_from_numpy`` take
-the fields of the reference package's ``DenseGrid``, ``RenderParams`` and
-``LightArray`` — as an object with those attributes (the reference objects
-themselves work, their arrays convert through ``np.asarray``) or as a dict —
-and build the port's objects on ``device``, so that both packages compute
-the same frame.
+``grid_from_numpy``, ``params_from_numpy``, ``lights_from_numpy``,
+``view_cache_from_numpy`` and ``compact_view_from_numpy`` take the fields
+of the reference package's ``DenseGrid``, ``RenderParams``, ``LightArray``,
+``ViewCache`` and ``CompactView`` — as an object with those attributes (the
+reference objects themselves work, their arrays convert through
+``np.asarray``) or as a dict — and build the port's objects on ``device``
+(the CPU unless asked), so that both packages compute the same frame.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from .engine.params import RenderParams
 from .grid.dense import DenseGrid
+from .render.color import CompactView, PlaneBand, ViewCache
 from .render.photon import LightArray
 
 _GRID_DTYPES = {
@@ -76,3 +78,30 @@ def lights_from_numpy(src, device="cpu") -> LightArray:
         arrays = {name: a[None] for name, a in arrays.items()}
     return LightArray(**{name: torch.as_tensor(a, device=device)
                          for name, a in arrays.items()})
+
+
+def _f32(src, name, device):
+    return torch.as_tensor(np.array(_get(src, name), np.float32),
+                           device=device)
+
+
+def view_cache_from_numpy(src, device="cpu") -> ViewCache:
+    """ViewCache (slots layout) from the reference view's (R, C) planes."""
+    return ViewCache(
+        **{n: _f32(src, n, device) for n in ("wx", "wy", "wz", "weight")},
+        n_rays=int(_get(src, "n_rays")), rows=int(_get(src, "rows")))
+
+
+def compact_view_from_numpy(src, device="cpu") -> CompactView:
+    """CompactView from the reference view's bands and index maps."""
+    bands = tuple(
+        PlaneBand(**{n: _f32(b, n, device)
+                     for n in ("wx", "wy", "wz", "weight")},
+                  lane_need=torch.as_tensor(
+                      np.array(_get(b, "lane_need"), np.int32),
+                      device=device))
+        for b in _get(src, "bands"))
+    idx = {n: torch.as_tensor(np.array(_get(src, n), np.int32),
+                              device=device) for n in ("inv_map", "src")}
+    return CompactView(bands=bands, n_rays=int(_get(src, "n_rays")),
+                       rows=int(_get(src, "rows")), **idx)

@@ -93,9 +93,6 @@ class RenderParams:
 
 # StaticConfig value -> the ROADMAP item that ports it.
 _UNPORTED_CONFIG = {
-    ("motion_mode", "coarse"): "ROADMAP Queue 1 item 10 (interactive paths)",
-    ("motion_mode", "truncated"): "ROADMAP Queue 1 item 10 (interactive paths)",
-    ("compact_view", False): "ROADMAP Queue 1 item 10 (slots layout)",
     ("compact_build", "host"): "ROADMAP Queue 1 item 13 (host-banded build)",
     ("interpolation", "trilinear"): "ROADMAP Queue 1 item 14 (slice options)",
     ("accum_dtype", "uint8"): "ROADMAP Queue 1 item 14 (slice options)",
@@ -119,13 +116,32 @@ class StaticConfig:
     max_points_per_segment: int = 512  # Ray/Beam sub-light cap per segment
     expanded_light_capacity: int = 16384  # compacted Ray/Beam sub-light slots
     gather_samples: int = 0
+    # False: the uncached view (render.color.ViewCache, slots layout) with
+    # every ray's full march, shaded by the slot kernels.
     compact_view: bool = True
     # "auto": the compact view is built on the device when its planes fit
     # Renderer.device_view_budget_bytes (else it raises: the host-banded
     # build is not ported); "device": always.
     compact_build: str = "auto"
+    # Interactive camera motion: while the camera or march parameters change
+    # between consecutive frames, frames render through a cheap path and
+    # the settled camera rebuilds the exact view.
+    #   "off"       — every frame exact (the default);
+    #   "coarse"    — the uncached step at ``motion_stride`` x the march
+    #                 step (photon walk included); the settle rebuilds in
+    #                 ``settle_chunks`` row chunks, coarse frames between;
+    #   "truncated" — the first ``motion_cap`` occupied samples of each ray
+    #                 through an identity-order compact build.
     motion_mode: str = "off"
+    motion_cap: int = 16
+    motion_stride: int = 12
+    settle_chunks: int = 4
+    # Gather decimation (approximate fast tier): fold each run of
+    # ``gather_stride`` march samples into one evaluation point
+    # ("centroid"), or each run of 2 x ``gather_stride`` into two
+    # ("gauss2"); the weights' sums are kept (render.color.decimate_view).
     gather_stride: int = 1
+    gather_fold: str = "centroid"
     interpolation: str = "nearest"
     # Point/Sphere light-loop arithmetic:
     #   "exact"  — one guarded divide per (sample, light), the reference's
@@ -159,6 +175,7 @@ class StaticConfig:
     def __post_init__(self):
         allowed = {
             "motion_mode": {"off", "coarse", "truncated"},
+            "gather_fold": {"centroid", "gauss2"},
             "compact_build": {"auto", "host", "device"},
             "gather_eval": {"exact", "paired"},
             "segment_mode": {"discrete", "discrete_expanded", "analytic"},
@@ -181,11 +198,6 @@ class StaticConfig:
                     f"StaticConfig.{field}={value!r} is not ported to "
                     f"PyTorch yet: {item}"
                 )
-        if self.gather_stride > 1:
-            raise NotImplementedError(
-                "StaticConfig.gather_stride > 1 is not ported to PyTorch "
-                "yet: ROADMAP Queue 1 item 10 (decimation)"
-            )
         if (self.segment_mode == "discrete_expanded"
                 and self.expanded_light_capacity > SMEM_LIGHT_LIMIT):
             raise NotImplementedError(

@@ -1,4 +1,4 @@
-"""Interactive renderer session (twin of the cached branch of
+"""Interactive renderer session (twin of the gather-algorithm branches of
 volumerenderer_tpu.engine.session.Renderer).
 
 UI semantics (src/main.cpp:649-698):
@@ -10,9 +10,19 @@ UI semantics (src/main.cpp:649-698):
   * ``step(n)``       — n drawFrames;
   * ``image`` / ``image_u8`` — the presented accumulation buffer.
 
-Everything runs on the session's ``device``; grid, view, lights and the
-accumulator live there.  The march is baked once per camera/volume/march
-parameters into a compact view and reused by every frame.
+Everything runs on the session's ``device`` (the grid's unless given);
+grid, view, lights and the accumulator live there.  The march is baked
+once per camera/volume/march parameters into a compact view (or, with
+``compact_view=False``, a slots ViewCache) and reused by every frame;
+``use_view_cache=False`` marches every frame (the uncached step).
+
+Interactive paths (``StaticConfig.motion_mode``): a frame whose camera or
+march parameters differ from the previous frame's is a drag frame and
+renders through the coarse uncached step or the truncated identity-order
+build; the first frame of a settled camera rebuilds the exact view, in
+``settle_chunks`` row chunks with coarse frames in between (coarse mode).
+``first_frame_uncached``: a new session presents its first frame through
+the uncached step before it builds the view (the viewer's setting).
 """
 
 from __future__ import annotations
@@ -26,10 +36,15 @@ import torch
 
 from ..grid.dense import DenseGrid, occupied_bbox
 from ..ops.kernels.gather_lanes import TILE_L
-from ..render.color import build_compact_view_device, required_march_steps
+from ..ops.march import f32
+from ..render.color import (
+    build_compact_view_device, merge_row_views, required_march_steps,
+)
 from .params import Algorithm, RenderParams, StaticConfig, check_algorithm
 from .state import RenderState
-from .step import render_step_cached, render_steps_cached
+from .step import (
+    build_view_step, render_step, render_step_cached, render_steps_cached,
+)
 
 
 def _resolve_device(device, grid: DenseGrid) -> torch.device:
@@ -58,15 +73,26 @@ class Renderer:
         self.device = _resolve_device(device, grid)
         self._grid_token = 0
         self.grid = grid
+        self._suppress_motion_once = False  # set by resize and grid swaps
         self.config = config or StaticConfig()
         self.params = params or RenderParams.default()
         self.algorithm = check_algorithm(algorithm)
         self.state = RenderState.create(self.config.height, self.config.width,
                                         self.device)
         self.lights = None
+        # False: every frame marches anew through the uncached step.
+        self.use_view_cache = True
         self._view = None
         self._view_key = None
         self.view_exact = True
+        self._settle = None  # the progressive settle in flight
+        self._last_step_key = None  # the previous frame's view key
+        # Present a new session's first frame through the uncached step
+        # (one march + shade) before building the view.  It differs from
+        # the cached frame by the sum over samples: PyTorch sums the slot
+        # kernel's (R, C) output, the lane kernel sums inside.
+        self.first_frame_uncached = False
+        self._ttff_done = False
         self._budget_checked = False
         # Host reads (device -> host syncs) made by frames and builds.
         self.host_syncs = 0
@@ -84,6 +110,9 @@ class Renderer:
         # Caches key on this counter: a replaced grid never aliases a
         # stale view.
         self._grid_token += 1
+        # A volume swap changes the view key but is not a camera drag.
+        self._suppress_motion_once = True
+        self._settle = None
 
     # ---- UI semantics ----
 
@@ -107,6 +136,9 @@ class Renderer:
         self.config = dataclasses.replace(self.config, width=width,
                                           height=height)
         self.state = RenderState.create(height, width, self.device)
+        # Not a drag: frame 1 of the fresh accumulation must be exact.
+        self._suppress_motion_once = True
+        self._settle = None
 
     def _maybe_warn_light_truncation(self) -> None:
         """Once per accumulation: warn if max_events_per_photon truncated
@@ -174,7 +206,11 @@ class Renderer:
         )
 
     def _device_build_ok(self, steps: int) -> bool:
-        """Whether the compact view's planes fit the device budget."""
+        """Whether the compact view may be built on the device: always for
+        ``compact_build="device"``; for "auto" when its planes fit the
+        device budget."""
+        if self.config.compact_build == "device":
+            return True
         n_rays = self.config.height * self.config.width
         lanes_n = -(-n_rays // TILE_L) * TILE_L
         cell = self._march_cell()
@@ -199,16 +235,106 @@ class Renderer:
             self._view_key = None
             clip_box, view_steps = self._occupied_clip()
             steps = min(max_steps, view_steps)
-            if (self.config.compact_build == "auto"
-                    and not self._device_build_ok(steps)):
+            if not self.config.compact_view:
+                self.view_exact = True
+                self._view = build_view_step(
+                    self.grid, self.params, clip_box, config=self.config,
+                    max_steps=steps)
+            elif self._device_build_ok(steps):
+                self._view = self._build_compact_view_device(clip_box, steps)
+            else:
                 raise NotImplementedError(
                     "compact view exceeds device_view_budget_bytes; the "
                     "host-banded build is not ported to PyTorch yet: "
                     "ROADMAP Queue 1 item 13"
                 )
-            self._view = self._build_compact_view_device(clip_box, steps)
             self._view_key = key
         return self._view
+
+    # ---- interactive paths ----
+
+    def _motion_steps(self, n: int, max_steps: int) -> RenderState:
+        """Drag frames.  "coarse": the uncached step with the march (and the
+        photon walk) at ``motion_stride`` x the step size, so the coarser
+        Riemann sum keeps the settled image's brightness.  "truncated": the
+        first ``motion_cap`` occupied samples of each ray through an
+        identity-order compact build, shaded once."""
+        if self.config.motion_mode == "coarse":
+            stride = max(1, int(self.config.motion_stride))
+            coarse = float(self.params.ray_marching_step_size) * stride
+            params = self.params.replace(ray_marching_step_size=f32(coarse))
+            steps = required_march_steps(self.grid, coarse,
+                                         self.config.max_march_steps)
+            self.view_exact = stride == 1
+            for _ in range(n):
+                self.state, lights = render_step(
+                    self.grid, params, self.state, algorithm=self.algorithm,
+                    config=self.config, max_steps=steps)
+                self._took(lights, 1)
+            return self.state
+        clip_box, view_steps = self._occupied_clip()
+        steps = min(self.config.motion_cap, view_steps, max_steps)
+        self.view_exact = steps >= min(view_steps, max_steps)
+        mv = build_compact_view_device(
+            self.grid, self.params, self.config, steps, clip_box=clip_box,
+            march_cell=self._march_cell(), order="identity")
+        for _ in range(n):
+            self.state, lights = render_step_cached(
+                self.grid, self.params, self.state, mv,
+                algorithm=self.algorithm, config=self.config,
+                max_steps=max_steps)
+            self._took(lights, 1)
+        return self.state
+
+    def _settle_step(self, key, max_steps: int, n: int) -> bool:
+        """Advance the progressive settle: build one row chunk of the exact
+        view for the settled camera, and render this tick's frames through
+        the coarse path.  When the last of ``settle_chunks`` chunks lands
+        they merge into the exact view (render.color.merge_row_views).
+
+        Returns True when an exact view for ``key`` is installed, or when
+        the progressive path does not apply (settle_chunks <= 1, a height
+        not divisible by it, motion_mode other than "coarse", the slots
+        view, a view over the device budget) and the caller rebuilds
+        blocking."""
+        K = int(self.config.settle_chunks)
+        H = self.config.height
+        if (K <= 1 or H % K or self.config.motion_mode != "coarse"
+                or not self.config.compact_view):
+            self._settle = None
+            return True
+        st = self._settle
+        if st is not None and st["K"] != K:
+            st = None  # settle_chunks changed mid-progress: restart
+        if st is None or st["key"] != key:
+            clip_box, view_steps = self._occupied_clip()
+            steps = min(max_steps, view_steps)
+            if not self._device_build_ok(steps):
+                self._settle = None
+                return True
+            # Drop the stale view now (the chunks grow toward its size);
+            # its key stays, the "camera away from the view" signal.
+            self._view = None
+            st = self._settle = {"key": key, "clip": clip_box,
+                                 "steps": steps, "views": [], "K": K}
+        i = len(st["views"])
+        # Bands K x narrower inside a chunk keep the per-band caps as tight
+        # as the full build's.
+        band = max(TILE_L, (512 * 1024 // K) // TILE_L * TILE_L)
+        view = build_compact_view_device(
+            self.grid, self.params, self.config, st["steps"],
+            clip_box=st["clip"], row_start=i * (H // K), num_rows=H // K,
+            march_cell=self._march_cell(), band_lanes=band)
+        self.host_syncs += view.host_syncs
+        st["views"].append(view)
+        if len(st["views"]) < K:
+            self._motion_steps(n, max_steps)
+            return False
+        self._view = merge_row_views(st["views"])
+        self._view_key = key
+        self.view_exact = True
+        self._settle = None
+        return True
 
     # ---- frame loop ----
 
@@ -218,8 +344,51 @@ class Renderer:
             self._maybe_warn_light_truncation()
         return state
 
+    def _took(self, lights, k: int) -> None:
+        """Book a step's lights: its walk's host reads, the last frame's."""
+        self.host_syncs += lights.walk_syncs
+        self.lights = lights.frame(k - 1)
+
     def _step(self, n: int = 1) -> RenderState:
         max_steps = self._max_steps
+        if not self.use_view_cache:
+            for _ in range(n):
+                self.state, lights = render_step(
+                    self.grid, self.params, self.state,
+                    algorithm=self.algorithm, config=self.config,
+                    max_steps=max_steps)
+                self._took(lights, 1)
+            return self.state
+        key = self._make_view_key(max_steps)
+        suppress = self._suppress_motion_once
+        moving = (self.config.motion_mode != "off"
+                  and self._view_key is not None
+                  and key != self._view_key
+                  and key != self._last_step_key
+                  and not suppress)
+        self._suppress_motion_once = False
+        self._last_step_key = key
+        if moving:
+            self._settle = None  # the camera moved again: drop progress
+            return self._motion_steps(n, max_steps)
+        if (not suppress and key != self._view_key
+                and (self._view_key is not None or self._settle is not None)):
+            # The camera settled on a stale view: rebuild progressively.
+            if not self._settle_step(key, max_steps, n):
+                return self.state
+        if (self.first_frame_uncached and not self._ttff_done
+                and self._view is None and self._view_key is None
+                and self._settle is None):
+            # A new session's first frame, before the view build.
+            self._ttff_done = True
+            self.state, lights = render_step(
+                self.grid, self.params, self.state,
+                algorithm=self.algorithm, config=self.config,
+                max_steps=max_steps)
+            self._took(lights, 1)
+            n -= 1
+            if n <= 0:
+                return self.state
         view = self._current_view(max_steps)
         remaining = n
         while remaining > 0:
@@ -236,8 +405,7 @@ class Renderer:
                     algorithm=self.algorithm, config=self.config,
                     max_steps=max_steps, n_frames=k,
                 )
-            self.host_syncs += lights.walk_syncs
-            self.lights = lights.frame(k - 1)
+            self._took(lights, k)
             remaining -= k
         return self.state
 

@@ -1,8 +1,9 @@
-"""Per-frame render steps over a cached compact view (twin of the cached
-steps of volumerenderer_tpu.engine.step).
+"""Per-frame render steps (twin of the gather steps of
+volumerenderer_tpu.engine.step): the uncached step, which marches every
+ray and shades it in slots layout, and the steps over a baked view.
 
 A frame is: frameCount++, clear on frame 1, photon-walk light generation,
-shading of the baked view, progressive accumulation.
+shading, progressive accumulation.
 """
 
 from __future__ import annotations
@@ -17,11 +18,37 @@ from .params import Algorithm, RenderParams, StaticConfig
 from .state import RenderState, accumulate
 
 
+def render_step(grid: DenseGrid, params: RenderParams, state: RenderState,
+                *, algorithm: Algorithm, config: StaticConfig,
+                max_steps: int):
+    """One uncached frame (march + shade, render_frame): returns
+    (new_state, lights)."""
+    fc = state.frame_count + 1
+    accum = torch.zeros_like(state.accum) if fc == 1 else state.accum
+    lights = photon.generate_lights(grid, params, [fc], config,
+                                    max_steps=max_steps)
+    frame = color_mod.render_frame(grid, params, lights, algorithm, config,
+                                   max_steps)
+    return RenderState(accumulate(accum, frame, fc), fc), lights
+
+
+def build_view_step(grid: DenseGrid, params: RenderParams, clip_box=None,
+                    row_start: int = 0, *, config: StaticConfig,
+                    max_steps: int, num_rows: int | None = None,
+                    occupied_cap: int | None = None, march_cell: int = 8):
+    """Bake the per-view march in slots layout (render.color.build_view)
+    once per camera/volume/step change; reused by every cached frame."""
+    return color_mod.build_view(
+        grid, params, config, max_steps, row_start, num_rows,
+        clip_box=clip_box, occupied_cap=occupied_cap, march_cell=march_cell)
+
+
 def render_step_cached(grid: DenseGrid, params: RenderParams,
-                       state: RenderState, view: color_mod.CompactView, *,
+                       state: RenderState, view, *,
                        algorithm: Algorithm, config: StaticConfig,
                        max_steps: int):
-    """One frame in image space: returns (new_state, lights)."""
+    """One frame over a baked CompactView or ViewCache, in image space:
+    returns (new_state, lights)."""
     fc = state.frame_count + 1
     accum = torch.zeros_like(state.accum) if fc == 1 else state.accum
     lights = photon.generate_lights(grid, params, [fc], config,
@@ -31,19 +58,29 @@ def render_step_cached(grid: DenseGrid, params: RenderParams,
 
 
 def render_steps_cached(grid: DenseGrid, params: RenderParams,
-                        state: RenderState, view: color_mod.CompactView, *,
+                        state: RenderState, view, *,
                         algorithm: Algorithm, config: StaticConfig,
                         max_steps: int, n_frames: int):
-    """``n_frames`` frames accumulated in compact space.
+    """``n_frames`` frames over a baked view.
 
     The photon walks of all frames run first, as one walk of n_frames x 16
-    photons.  Each frame then updates only the (Rc,) lane vector; one
-    expansion to the image runs at the end, where the miss pixels'
+    photons.  Over a ViewCache each frame then shades and accumulates in
+    image space.  Over a CompactView each frame updates only the (Rc,)
+    lane vector; one expansion to the image runs at the end, where the miss pixels'
     average over n all-zero frames collapses to a scale by m / (m + n)."""
     m = state.frame_count
     fcs = [m + 1 + i for i in range(n_frames)]
     lights = photon.generate_lights(grid, params, fcs, config,
                                     max_steps=max_steps)
+    if isinstance(view, color_mod.ViewCache):
+        accum = state.accum
+        for i, fc in enumerate(fcs):
+            frame = color_mod.shade_view(grid, view, params, lights,
+                                         algorithm, config, frame=i)
+            if fc == 1:
+                accum = torch.zeros_like(accum)
+            accum = accumulate(accum, frame, fc)
+        return RenderState(accum, m + n_frames), lights
     accum_flat = state.accum.reshape(-1)
     accum_c = accum_flat[view.src.to(torch.int64)]
     for i, fc in enumerate(fcs):

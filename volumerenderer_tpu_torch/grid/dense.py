@@ -142,6 +142,17 @@ def brick_tables(padded: np.ndarray):
     return brick_max, occ, dil
 
 
+def check_device(device, caller: str) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without CUDA raises
+    naming ``caller``'s ``device`` argument (there is no CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{caller}(device={device!r}): CUDA is not available; pass "
+            "device='cpu' to build on the CPU")
+    return dev
+
+
 def from_dense(
     values: np.ndarray,
     bbox_min=(0, 0, 0),
@@ -149,13 +160,15 @@ def from_dense(
     translation=(0.0, 0.0, 0.0),
     map_mat: np.ndarray | None = None,
     *,
-    device="cpu",
+    device="cuda",
 ) -> DenseGrid:
-    """Build a DenseGrid on ``device`` from a dense numpy density array.
+    """Build a DenseGrid on ``device`` (the GPU unless asked for the CPU)
+    from a dense numpy density array.
 
     ``values[i, j, k]`` is the density at index ``bbox_min + (i, j, k)``.
     The map defaults to uniform ``voxel_size`` scaling plus
     ``translation``."""
+    device = check_device(device, "from_dense")
     values = np.ascontiguousarray(values, np.float32)
     if values.ndim != 3:
         raise ValueError(f"expected 3-D density array, got shape {values.shape}")

@@ -1,14 +1,15 @@
 """Procedural test volumes (twin of volumerenderer_tpu.grid.procedural).
 
 The numpy builders are copied so the port needs no JAX; the voxels are
-bit-identical to the reference package's for the same arguments.
+bit-identical to the reference package's for the same arguments.  The
+grids live on the GPU unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .dense import DenseGrid, from_dense
+from .dense import DenseGrid, check_device, from_dense
 
 
 def fog_sphere(
@@ -18,9 +19,10 @@ def fog_sphere(
     world_extent: float = 60.0,
     max_density: float = 1.0,
     *,
-    device="cpu",
+    device="cuda",
 ) -> DenseGrid:
     """Soft-edged density sphere, akin to nanovdb's createFogVolumeSphere."""
+    device = check_device(device, "fog_sphere")
     voxel = world_extent / n
     ax = (np.arange(n) + 0.5) / n - 0.5
     x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
@@ -41,10 +43,11 @@ def cloud(
     max_density: float = 1.0,
     octaves: int = 4,
     *,
-    device="cpu",
+    device="cuda",
 ) -> DenseGrid:
     """Puffy value-noise cloud: ellipsoid falloff x multi-octave noise,
     deterministic in ``seed``."""
+    device = check_device(device, "cloud")
     from scipy.ndimage import zoom
 
     rng = np.random.RandomState(seed)

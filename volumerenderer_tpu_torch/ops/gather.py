@@ -3,15 +3,18 @@
     point:   sum_l I_l / (4 pi |p - l|^2)         with |.|^2 < 1e-4 -> 0
     sphere:  sum_l I_l / (4 pi (|p - c_l| - r)^2)  same guard, centre -> 0
 (common_functions.h:186-201); Ray/VRL and Beam/VBL segments through the
-discrete sub-light sum or the analytic segment integral.  Only the lanes
-layout is ported; ``*_xla`` are the plain oracles of the reference package's
-``impl="xla"``, with exact transcendentals.
+discrete sub-light sum or the analytic segment integral.  ``layout``
+"lanes": (Cp, Rc) lane planes of a CompactView -> (Rc,) per-ray sums;
+"slots": (R, C) planes of a ViewCache -> (R, C) weighted per-sample sums.
+``*_xla`` are the plain oracles of the reference package's ``impl="xla"``,
+with exact transcendentals.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .kernels import gather_vpu as vpu
 from .kernels import segment_math as sm
 from .kernels.gather_lanes import gather_lanes
 from .kernels.gather_segments import (
@@ -51,9 +54,11 @@ def gather_planes(px, py, pz, weight, l_pos, l_int, l_valid, *,
                   sphere: bool, radius=0.0, layout: str = "lanes",
                   lane_need=None, paired: bool = False):
     """Gather over lane planes (Cp, Rc) -> (Rc,) per-ray sums
-    ``sum_samples(w * sum_lights)``.  The valid light slots must form one
-    contiguous range (true for photon lights); its start and count stay on
-    the device.  ``paired=True``: one divide per 4 lights."""
+    ``sum_samples(w * sum_lights)``, or (``layout="slots"``) over (R, C)
+    planes -> (R, C) weighted sums ``w * sum_lights``.  The valid light
+    slots must form one contiguous range (true for photon lights); its start
+    and count stay on the device.  ``paired=True``: one divide per 4
+    lights."""
     _check_layout("gather_planes", layout)
     if l_pos.shape[0] > SMEM_LIGHT_LIMIT:
         raise NotImplementedError(
@@ -64,6 +69,9 @@ def gather_planes(px, py, pz, weight, l_pos, l_int, l_valid, *,
     valid_i = l_valid.to(torch.int32)
     start = torch.argmax(valid_i)  # first valid slot (0 if none; count 0)
     count = valid_i.sum()
+    if layout == "slots":
+        return vpu.gather_vpu(px, py, pz, weight, l_pos, l_int, start, count,
+                              sphere=sphere, radius=radius, paired=paired)
     return gather_lanes(
         px, py, pz, weight, l_pos, l_int, start, count, sphere=sphere,
         radius=radius, lane_need=lane_need, paired=paired,
@@ -71,11 +79,9 @@ def gather_planes(px, py, pz, weight, l_pos, l_int, l_valid, *,
 
 
 def _check_layout(name: str, layout: str) -> None:
-    if layout != "lanes":
-        raise NotImplementedError(
-            f"{name}(layout={layout!r}): the slots layout is not "
-            "ported to PyTorch yet: ROADMAP Queue 1 item 10"
-        )
+    if layout not in ("lanes", "slots"):
+        raise ValueError(f"{name}(layout={layout!r}): expected 'lanes' or "
+                         "'slots'")
 
 
 def _segment_frame(pos_from, pos_to, intensity, valid):
@@ -200,9 +206,14 @@ def gather_segments_discrete(px, py, pz, weight, pos_from, pos_to, intensity,
                              sphere_radius=None, layout: str = "lanes",
                              lane_need=None, paired: bool = False):
     """Reference-parity discrete Ray/VRL or Beam/VBL gather over lane planes
-    (Cp, Rc) -> (Rc,) per-ray sums: the sub-lights are walked inside the
-    kernel from the segment table, without caps."""
+    (Cp, Rc) -> (Rc,) per-ray sums, or over slot planes (R, C) -> (R, C)
+    weighted sums: the sub-lights are walked inside the kernel from the
+    segment table, without caps."""
     _check_layout("gather_segments_discrete", layout)
+    if layout == "slots":
+        return vpu.gather_segments_discrete(
+            px, py, pz, weight, pos_from, pos_to, intensity, valid,
+            light_ray_step_size, sphere_radius=sphere_radius, paired=paired)
     return gather_segments_discrete_lanes(
         px, py, pz, weight, pos_from, pos_to, intensity, valid,
         light_ray_step_size, sphere_radius=sphere_radius,
@@ -215,8 +226,13 @@ def gather_segments(px, py, pz, weight, pos_from, pos_to, intensity, valid, *,
                     lane_need=None, paired: bool = False):
     """Analytic Ray/VRL (closed form, ``sphere_radius=None``) or Beam/VBL
     (``quad_rule`` quadrature) gather over lane planes -> (Rc,) per-ray
-    sums."""
+    sums, or over slot planes -> (R, C) weighted sums."""
     _check_layout("gather_segments", layout)
+    if layout == "slots":
+        return vpu.gather_segments_analytic(
+            px, py, pz, weight, pos_from, pos_to, intensity, valid,
+            sphere_radius=sphere_radius, quad_nodes=quad_nodes,
+            quad_rule=quad_rule, paired=paired)
     return gather_segments_analytic_lanes(
         px, py, pz, weight, pos_from, pos_to, intensity, valid,
         sphere_radius=sphere_radius, quad_nodes=quad_nodes,

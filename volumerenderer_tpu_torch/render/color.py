@@ -1,5 +1,7 @@
-"""Color pass over a compact view (the parts of
-volumerenderer_tpu.render.color on the cached main path).
+"""Color pass (the parts of volumerenderer_tpu.render.color on the ported
+paths): the cached compact view, the uncached slots view, and the
+interactive builds (identity-order drag views, row chunks of the settle,
+gather decimation).
 
   build (once per camera/volume/march-parameter change):
     camera rays -> occupancy counts (dilated brick table, no volume
@@ -20,6 +22,11 @@ so XLA's shapes stay static; here each band's maximum count is read on
 the host (one read per build) and the band marches at exactly that cap.
 The planes may be narrower than the reference build's; ``inv_map``,
 ``src``, ``lane_need`` and every plane value within ``lane_need`` agree.
+
+  uncached (the plain ``render_frame``; ``compact_view=False``): every
+    ray's full march straight into row-major (R, C) planes (a ViewCache),
+    shaded by the slot kernels into (R, C) weighted per-sample sums, summed
+    over samples here.
 """
 
 from __future__ import annotations
@@ -29,12 +36,14 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..engine.params import Algorithm, RenderParams, StaticConfig
 from ..grid.dense import DenseGrid
 from ..ops import camera, gather as gather_ops, lights as lights_ops
 from ..ops import march as march_ops
 from ..ops.kernels.gather_lanes import TILE_L, lane_need_of
+from ..ops.march import sqrt
 from ..ops.rng import norm3
 from .photon import LightArray
 
@@ -115,11 +124,11 @@ def occupancy_counts_rays(grid, params, config, max_steps: int, o_i, d_i, *,
     return out
 
 
-def build_view_rays(grid, params, config, max_steps: int, o_i, d_i, *,
-                    clip_box=None, occupied_cap: int | None = None,
-                    march_cell: int = 8):
-    """Bake the march for an explicit ray set, straight into lane-major
-    planes: returns (wx, wy, wz, w), each (C, N)."""
+def _march_planes(grid, params, config, max_steps: int, o_i, d_i, *,
+                  clip_box, occupied_cap, march_cell: int, lanes: bool):
+    """Bake the march for an explicit ray set: (4, C, N) lane-major planes
+    (``lanes``) or (4, N, C) row-major planes of (wx, wy, wz, w), written
+    tile by tile so that no transposed copy of the planes is made."""
     n_rays = o_i.shape[0]
     cap = occupied_cap if march_cell > 1 else None
     if cap is not None:
@@ -132,7 +141,8 @@ def build_view_rays(grid, params, config, max_steps: int, o_i, d_i, *,
     tile_mem_bound = max(1024, ((3 << 29) // max(C * 40, 1)) // 1024 * 1024)
     tile = max(1, min(config.build_tile, tile_mem_bound, n_rays))
     dev = o_i.device
-    planes = torch.empty((4, C, n_rays), dtype=torch.float32, device=dev)
+    shape = (4, C, n_rays) if lanes else (4, n_rays, C)
+    planes = torch.empty(shape, dtype=torch.float32, device=dev)
     mm = grid.map_mat
     mv = grid.map_vec
     for a, b in _tiles(n_rays, tile):
@@ -149,14 +159,69 @@ def build_view_rays(grid, params, config, max_steps: int, o_i, d_i, *,
         ix = o[:, 0:1] + d[:, 0:1] * t
         iy = o[:, 1:2] + d[:, 1:2] * t
         iz = o[:, 2:3] + d[:, 2:3] * t
-        planes[0, :, a:b] = (mm[0, 0] * ix + mm[0, 1] * iy + mm[0, 2] * iz
-                             + mv[0]).T
-        planes[1, :, a:b] = (mm[1, 0] * ix + mm[1, 1] * iy + mm[1, 2] * iz
-                             + mv[1]).T
-        planes[2, :, a:b] = (mm[2, 0] * ix + mm[2, 1] * iy + mm[2, 2] * iz
-                             + mv[2]).T
-        planes[3, :, a:b] = m.weight.T
-    return tuple(planes)
+        for i in range(3):
+            v = mm[i, 0] * ix + mm[i, 1] * iy + mm[i, 2] * iz + mv[i]
+            if lanes:
+                planes[i, :, a:b] = v.T
+            else:
+                planes[i, a:b] = v
+        if lanes:
+            planes[3, :, a:b] = m.weight.T
+        else:
+            planes[3, a:b] = m.weight
+    return planes
+
+
+def build_view_rays(grid, params, config, max_steps: int, o_i, d_i, *,
+                    clip_box=None, occupied_cap: int | None = None,
+                    march_cell: int = 8):
+    """Bake the march for an explicit ray set, straight into lane-major
+    planes: returns (wx, wy, wz, w), each (C, N)."""
+    return tuple(_march_planes(
+        grid, params, config, max_steps, o_i, d_i, clip_box=clip_box,
+        occupied_cap=occupied_cap, march_cell=march_cell, lanes=True))
+
+
+@dataclass
+class ViewCache:
+    """Baked march of every ray of a view in slots layout: row r holds ray
+    r's samples (C = the march's trip count).  Shaded by the slot kernels;
+    rows past ``n_rays`` (padding) carry zero weight."""
+
+    wx: torch.Tensor  # (R, C) world-space sample x
+    wy: torch.Tensor  # (R, C)
+    wz: torch.Tensor  # (R, C)
+    weight: torch.Tensor  # (R, C) gather weights T * val * dt
+    n_rays: int
+    rows: int
+
+
+def _clip_tensors(clip_box, dev):
+    if clip_box is None:
+        return None
+    return tuple(torch.as_tensor(np.asarray(c, np.float32), device=dev)
+                 for c in clip_box)
+
+
+def build_view(grid: DenseGrid, params: RenderParams, config: StaticConfig,
+               max_steps: int, row_start: int = 0,
+               num_rows: int | None = None, clip_box=None,
+               occupied_cap: int | None = None,
+               march_cell: int = 8) -> ViewCache:
+    """Run the transmittance march for every ray of the view (rows
+    ``row_start`` .. + ``num_rows``) and bake world-space sample planes and
+    weights in slots layout.  ``clip_box``: the occupied-region corners
+    (bit-identical results); ``occupied_cap`` with ``march_cell`` > 1:
+    brick-skipping march at that per-ray cap."""
+    H, W = config.height, config.width
+    rows = H if num_rows is None else num_rows
+    o_i, d_i = camera_rays_index(grid, params, config, row_start, num_rows)
+    wx, wy, wz, w = _march_planes(
+        grid, params, config, max_steps, o_i, d_i,
+        clip_box=_clip_tensors(clip_box, grid.device),
+        occupied_cap=occupied_cap, march_cell=march_cell, lanes=False)
+    return ViewCache(wx=wx, wy=wy, wz=wz, weight=w, n_rays=rows * W,
+                     rows=rows)
 
 
 def build_compact_view_device(
@@ -170,25 +235,45 @@ def build_compact_view_device(
     num_rows: int | None = None,
     march_cell: int = 8,
     band_lanes: int = 512 * 1024,
+    order: str = "occupancy",
 ) -> CompactView:
-    """Compact-view build on the device (occupancy lane order).
+    """Compact-view build on the device.
 
-    Lanes are all rays padded to TILE_L, sorted by descending occupancy
-    count (stable, so ties keep ray order); misses sink to the tail.  Each
-    ``band_lanes``-wide band marches at the cap of its busiest lane, read on
-    the host once for all bands.  Exact: every cap covers every lane's
-    occupied count."""
+    ``order="occupancy"``: lanes are all rays padded to TILE_L, sorted by
+    descending occupancy count (stable, so ties keep ray order); misses sink
+    to the tail.  Each ``band_lanes``-wide band marches at the cap of its
+    busiest lane, read on the host once for all bands.  Exact: every cap
+    covers every lane's occupied count.
+
+    ``order="identity"``: lanes keep ray order and every band marches at
+    ``steps`` (no occupancy pre-march, no sort, no host read): the build of
+    a view shaded once, as a drag frame is.
+
+    With ``config.gather_stride > 1`` the view is decimated
+    (``decimate_view``)."""
     H, W = config.height, config.width
     rows = H if num_rows is None else num_rows
     n_rays = rows * W
     lanes_n = -(-n_rays // TILE_L) * TILE_L
     dev = grid.device
-    if clip_box is not None:
-        clip_box = tuple(
-            torch.as_tensor(np.asarray(c, np.float32), device=dev)
-            for c in clip_box
-        )
+    clip_box = _clip_tensors(clip_box, dev)
     o_i, d_i = camera_rays_index(grid, params, config, row_start, num_rows)
+    pad = lanes_n - n_rays
+    starts = list(range(0, lanes_n, band_lanes))
+
+    if order == "identity":
+        inv_map = torch.arange(n_rays, dtype=torch.int32, device=dev)
+        lane_live = torch.arange(lanes_n, device=dev) < n_rays
+        order_p = torch.where(lane_live, torch.arange(lanes_n, device=dev), 0)
+        view = _march_bands(
+            grid, params, config, steps, o_i, d_i, order_p, lane_live,
+            starts, [steps] * len(starts), band_lanes, clip_box=clip_box,
+            march_cell=march_cell, skip_empty=False,
+            inv_map=inv_map, src=order_p.to(torch.int32), n_rays=n_rays,
+            rows=rows, host_syncs=0)
+        return _maybe_decimate(view, config)
+    if order != "occupancy":
+        raise ValueError(f"unknown lane order: {order!r}")
 
     use_occ = march_cell > 1
     if use_occ:
@@ -204,38 +289,181 @@ def build_compact_view_device(
     pos[ordr] = torch.arange(n_rays, device=dev)
     hit = counts > 0
     inv_map = torch.where(hit, pos, lanes_n).to(torch.int32)
-    pad = lanes_n - n_rays
     order_p = torch.nn.functional.pad(ordr, (0, pad))
     lane_live = torch.nn.functional.pad(hit[ordr], (0, pad))
     src = torch.where(lane_live, order_p, 0).to(torch.int32)
     counts_sorted = torch.where(lane_live, counts[order_p], 0)
 
-    starts = list(range(0, lanes_n, band_lanes))
     band_max = torch.stack(
         [counts_sorted[s:s + band_lanes].max() for s in starts]
     ).tolist()  # the one host read of the build
+    view = _march_bands(
+        grid, params, config, steps, o_i, d_i, order_p, lane_live, starts,
+        band_max if use_occ else [steps] * len(starts), band_lanes,
+        clip_box=clip_box, march_cell=march_cell, skip_empty=use_occ,
+        inv_map=inv_map, src=src, n_rays=n_rays, rows=rows, host_syncs=1)
+    return _maybe_decimate(view, config)
 
+
+def _march_bands(grid, params, config, steps, o_i, d_i, order_p, lane_live,
+                 starts, caps, band_lanes, *, clip_box, march_cell,
+                 skip_empty, **view_fields) -> CompactView:
+    """March each band of lanes ``order_p[s:s + band_lanes]`` at its cap;
+    with ``skip_empty`` a band of cap 0 (all misses) is not marched."""
+    lanes_n = order_p.shape[0]
+    dev = o_i.device
     bands = []
-    for s, bmax in zip(starts, band_max):
+    for s, cap in zip(starts, caps):
         size = min(band_lanes, lanes_n - s)
         idx_b = order_p[s:s + size]
         live_b = lane_live[s:s + size]
-        if use_occ and bmax == 0:
-            # All-miss band: nothing to march.
+        if skip_empty and cap == 0:
             z = torch.zeros((0, size), dtype=torch.float32, device=dev)
             bands.append(PlaneBand(z, z, z, z, torch.zeros(
                 size, dtype=torch.int32, device=dev)))
             continue
         wx, wy, wz, w = build_view_rays(
             grid, params, config, steps, o_i[idx_b], d_i[idx_b],
-            clip_box=clip_box, occupied_cap=bmax if use_occ else steps,
-            march_cell=march_cell,
+            clip_box=clip_box, occupied_cap=cap, march_cell=march_cell,
         )
         w = torch.where(live_b[None, :], w, 0.0)
         bands.append(PlaneBand(wx=wx, wy=wy, wz=wz, weight=w,
                                lane_need=lane_need_of(w)))
-    return CompactView(bands=tuple(bands), inv_map=inv_map, src=src,
-                       n_rays=n_rays, rows=rows, host_syncs=1)
+    return CompactView(bands=tuple(bands), **view_fields)
+
+
+def _maybe_decimate(view: CompactView, config: StaticConfig) -> CompactView:
+    if config.gather_stride > 1:
+        return decimate_view(view, int(config.gather_stride),
+                             fold=config.gather_fold)
+    return view
+
+
+def _runs(a: torch.Tensor, run: int) -> torch.Tensor:
+    """(Cp, Rc) -> (ceil(Cp / run), run, Rc), zero-padded."""
+    Cp, Rc = a.shape
+    pad = (-Cp) % run
+    if pad:
+        a = F.pad(a, (0, 0, 0, pad))
+    return a.reshape((Cp + pad) // run, run, Rc)
+
+
+def _pad8(a: torch.Tensor) -> torch.Tensor:
+    """Zero-pad the sample axis to a multiple of 8."""
+    pad8 = (-a.shape[0]) % 8
+    return F.pad(a, (0, 0, 0, pad8)) if pad8 else a
+
+
+def _decimate_band(band: PlaneBand, stride: int) -> PlaneBand:
+    """Centroid fold: each run of ``stride`` consecutive samples of a lane
+    becomes one evaluation point at the run's weight centroid, carrying the
+    run's summed weight (moments 0 and 1 of the run matched).  Zero-weight
+    runs keep the run's first sample position."""
+    w = _runs(band.weight, stride)
+    ws = torch.sum(w, dim=1)
+    inv = 1.0 / torch.clamp(ws, min=1e-30)
+    live = ws > 0.0
+
+    def centroid(a):
+        r = _runs(a, stride)
+        return torch.where(live, torch.sum(r * w, dim=1) * inv, r[:, 0, :])
+
+    return PlaneBand(
+        wx=_pad8(centroid(band.wx)),
+        wy=_pad8(centroid(band.wy)),
+        wz=_pad8(centroid(band.wz)),
+        weight=_pad8(ws),
+        lane_need=(band.lane_need + (stride - 1)) // stride,
+    )
+
+
+def _decimate_band_gauss2(band: PlaneBand, stride: int) -> PlaneBand:
+    """Two-point Gauss fold: each run of ``2 * stride`` samples becomes two
+    points at centroid -+ sigma along the ray, each with half the run's
+    summed weight (moments 0, 1 and 2 matched).  A lane's samples are
+    collinear, so sigma's direction comes from the covariance of the
+    positions with the in-run slot index; positions are rebased to the
+    run's first sample before squaring.  Zero-weight runs keep the run's
+    first sample position twice, with weight 0."""
+    R = 2 * stride
+    Rc = band.weight.shape[1]
+    w = _runs(band.weight, R)
+    ws = torch.sum(w, dim=1)
+    inv = 1.0 / torch.clamp(ws, min=1e-30)
+    live = ws > 0.0
+    idx = torch.arange(R, dtype=torch.float32, device=w.device)[None, :, None]
+    i_bar = torch.sum(w * idx, dim=1) * inv
+
+    var_sum = 0.0
+    covs, mus, firsts = [], [], []
+    for plane in (band.wx, band.wy, band.wz):
+        r = _runs(plane, R)
+        rel = r - r[:, :1, :]
+        mu_rel = torch.sum(w * rel, dim=1) * inv
+        var = torch.clamp(
+            torch.sum(w * rel * rel, dim=1) * inv - mu_rel * mu_rel, min=0.0)
+        cov = torch.sum(w * rel * idx, dim=1) * inv - mu_rel * i_bar
+        var_sum = var_sum + var
+        covs.append(cov)
+        mus.append(r[:, 0, :] + mu_rel)
+        firsts.append(r[:, 0, :])
+
+    sigma = sqrt(var_sum)
+    cnorm = sqrt(covs[0] * covs[0] + covs[1] * covs[1] + covs[2] * covs[2])
+    scale = sigma / torch.clamp(cnorm, min=1e-30)
+    C2 = 2 * ws.shape[0]
+
+    def two_points(axis):
+        off = covs[axis] * scale
+        lo = torch.where(live, mus[axis] - off, firsts[axis])
+        hi = torch.where(live, mus[axis] + off, firsts[axis])
+        return _pad8(torch.stack([lo, hi], dim=1).reshape(C2, Rc))
+
+    wh = ws * 0.5
+    return PlaneBand(
+        wx=two_points(0),
+        wy=two_points(1),
+        wz=two_points(2),
+        weight=_pad8(torch.stack([wh, wh], dim=1).reshape(C2, Rc)),
+        lane_need=((band.lane_need + R - 1) // R) * 2,
+    )
+
+
+def decimate_view(view: CompactView, stride: int,
+                  fold: str = "centroid") -> CompactView:
+    """Apply the ``fold`` ("centroid" or "gauss2") to every band of a
+    CompactView; inv_map/src are per-ray and stay."""
+    if stride <= 1:
+        return view
+    fold_fn = _decimate_band_gauss2 if fold == "gauss2" else _decimate_band
+    return CompactView(
+        bands=tuple(fold_fn(b, stride) for b in view.bands),
+        inv_map=view.inv_map, src=view.src, n_rays=view.n_rays,
+        rows=view.rows, host_syncs=view.host_syncs)
+
+
+def merge_row_views(views) -> CompactView:
+    """Merge CompactViews built over consecutive, disjoint row ranges (in
+    image order) into one full-image view: bands concatenate in lane order,
+    ``src``/``inv_map`` reindex into the global lane and ray spaces, and
+    each chunk's miss sentinel (its own lane count) becomes the merged lane
+    count.  Used by the progressive settle."""
+    total_lanes = sum(int(v.src.shape[0]) for v in views)
+    bands, src_parts, inv_parts = [], [], []
+    lane0 = ray0 = 0
+    for v in views:
+        bands.extend(v.bands)
+        lanes_v = int(v.src.shape[0])
+        src_parts.append(v.src + ray0)
+        inv_parts.append(torch.where(v.inv_map >= lanes_v, total_lanes,
+                                     v.inv_map + lane0).to(v.inv_map.dtype))
+        lane0 += lanes_v
+        ray0 += int(v.n_rays)
+    return CompactView(
+        bands=tuple(bands), inv_map=torch.cat(inv_parts),
+        src=torch.cat(src_parts), n_rays=ray0,
+        rows=sum(int(v.rows) for v in views),
+        host_syncs=sum(v.host_syncs for v in views))
 
 
 def _expanded_lights(lights: LightArray, params, algorithm: Algorithm,
@@ -257,9 +485,9 @@ def _expanded_lights(lights: LightArray, params, algorithm: Algorithm,
     return pos, inten, valid
 
 
-def _ray_radiance(view: CompactView, params, lights, algorithm, config,
-                  frame: int):
-    """(Rc_total,) weighted per-lane radiance sums, one kernel call per band."""
+def _shader(params, lights, algorithm, config, frame: int):
+    """This frame's gather: shade(wx, wy, wz, w, layout, lane_need) ->
+    (Rc,) per-lane sums ("lanes") or (R, C) weighted sums ("slots")."""
     segments = algorithm in (Algorithm.RAY, Algorithm.BEAM)
     mode = config.segment_mode if segments else None
     radius = params.beam_radius if algorithm is Algorithm.BEAM else None
@@ -269,20 +497,20 @@ def _ray_radiance(view: CompactView, params, lights, algorithm, config,
     if mode == "analytic":
         # The segment integral itself: closed form for Ray, quadrature for
         # Beam's sphere lights.
-        def shade(b):
+        def shade(wx, wy, wz, w, layout, lane_need):
             return gather_ops.gather_segments(
-                b.wx, b.wy, b.wz, b.weight, *seg, sphere_radius=radius,
+                wx, wy, wz, w, *seg, sphere_radius=radius,
                 quad_nodes=config.beam_quadrature_nodes,
-                quad_rule=config.beam_quadrature_rule, lane_need=b.lane_need,
-                paired=seg_paired,
+                quad_rule=config.beam_quadrature_rule, layout=layout,
+                lane_need=lane_need, paired=seg_paired,
             )
     elif mode == "discrete":
         # The reference's sub-lights, walked in the kernel from the segment
         # table (ray_compute_color.comp:11-24 / beam_compute_color.comp:11-24).
-        def shade(b):
+        def shade(wx, wy, wz, w, layout, lane_need):
             return gather_ops.gather_segments_discrete(
-                b.wx, b.wy, b.wz, b.weight, *seg, params.light_ray_step_size,
-                sphere_radius=radius, lane_need=b.lane_need,
+                wx, wy, wz, w, *seg, params.light_ray_step_size,
+                sphere_radius=radius, layout=layout, lane_need=lane_need,
                 paired=seg_paired,
             )
     else:
@@ -290,13 +518,24 @@ def _ray_radiance(view: CompactView, params, lights, algorithm, config,
                                                  config, frame)
         sphere = algorithm in (Algorithm.SPHERE, Algorithm.BEAM)
 
-        def shade(b):
+        def shade(wx, wy, wz, w, layout, lane_need):
             return gather_ops.gather_planes(
-                b.wx, b.wy, b.wz, b.weight, l_pos, l_int, l_valid,
-                sphere=sphere, radius=params.beam_radius, layout="lanes",
-                lane_need=b.lane_need, paired=config.gather_eval == "paired",
+                wx, wy, wz, w, l_pos, l_int, l_valid,
+                sphere=sphere, radius=params.beam_radius, layout=layout,
+                lane_need=lane_need, paired=config.gather_eval == "paired",
             )
-    parts = [shade(b) for b in view.bands]
+    return shade
+
+
+def _ray_radiance(view, params, lights, algorithm, config, frame: int):
+    """(R, C) weighted per-sample sums of a ViewCache (one slot-kernel
+    call), or (Rc_total,) weighted per-lane sums of a CompactView (one
+    lane-kernel call per band)."""
+    shade = _shader(params, lights, algorithm, config, frame)
+    if isinstance(view, ViewCache):
+        return shade(view.wx, view.wy, view.wz, view.weight, "slots", None)
+    parts = [shade(b.wx, b.wy, b.wz, b.weight, "lanes", b.lane_need)
+             for b in view.bands]
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
@@ -310,12 +549,26 @@ def shade_view_compact(grid, view: CompactView, params, lights: LightArray,
     return torch.clamp(colors / denom, 0.0, 1.0)
 
 
-def shade_view(grid, view: CompactView, params, lights: LightArray,
+def shade_view(grid, view, params, lights: LightArray,
                algorithm: Algorithm, config: StaticConfig,
                frame: int = 0) -> torch.Tensor:
-    """Shade a compact view with one frame's lights: (rows, W) radiance."""
-    colors = _ray_radiance(view, params, lights, algorithm, config, frame)
-    colors = expand_compact_colors(colors, view)
+    """Shade a CompactView or a ViewCache with one frame's lights:
+    (rows, W) radiance."""
+    out = _ray_radiance(view, params, lights, algorithm, config, frame)
+    if isinstance(view, ViewCache):
+        colors = torch.sum(out, dim=-1)[: view.n_rays]
+    else:
+        colors = expand_compact_colors(out, view)
     denom = torch.clamp(lights.count[frame], min=1).to(torch.float32)
     return torch.clamp(colors / denom, 0.0, 1.0).reshape(view.rows,
                                                           config.width)
+
+
+def render_frame(grid: DenseGrid, params: RenderParams, lights: LightArray,
+                 algorithm: Algorithm, config: StaticConfig, max_steps: int,
+                 row_start: int = 0, num_rows: int | None = None,
+                 frame: int = 0) -> torch.Tensor:
+    """One uncached frame: the full march of every ray (``build_view``)
+    shaded with frame ``frame`` of ``lights``; (rows, W) radiance."""
+    view = build_view(grid, params, config, max_steps, row_start, num_rows)
+    return shade_view(grid, view, params, lights, algorithm, config, frame)
