@@ -6,9 +6,10 @@
 Phases, each printed as one JSON line; any failure exits nonzero:
 
   1. device    the card's name, power limit and compute capability;
-  2. build     nvcc builds csrc/gather_lanes.cu, csrc/gather_segments.cu and
-               csrc/gather_vpu.cu from this checkout, all at once; ptxas
-               registers, spills and shared memory per kernel template;
+  2. build     nvcc builds csrc/gather_lanes.cu, csrc/gather_segments.cu,
+               csrc/gather_vpu.cu and csrc/gather_many.cu from this
+               checkout, all at once; ptxas registers, spills and shared
+               memory per kernel template;
   3. kernel    the point gather kernel against its plain PyTorch version at
                synthetic shapes (Cp 144, Rc 524288, L in {1, 37, 1000},
                point/sphere, exact/paired, plus edge cases);
@@ -56,7 +57,25 @@ Phases, each printed as one JSON line; any failure exits nonzero:
  14. goldens   the golden scene (64x64 cloud(n=48)) for Point, Sphere, Ray
                and Beam, through the compact view and the slots view,
                against tests/goldens at windowed SSIM >= 0.995 and max abs
-               error < 5e-3.
+               error < 5e-3;
+ 15. manykernel the many-light kernel (csrc/gather_many.cu) against its plain
+               version at synthetic (144, 65536) planes, about half of them
+               at zero weight, point and sphere, for 2,049 valid slots,
+               16,384 all valid, 16,384 at random 80% validity and 100,000
+               with 50 valid in the first or only in the last tile, with a
+               sample on a light (a sphere's centre);
+ 16. manylight the bench config through the many-light route: RAY and BEAM
+               segment_mode="discrete_expanded" at 16,384 slots (compact
+               view), RAY discrete_expanded through the slots view, POINT at
+               light_capacity = max_lights = 100,000: step(4) warm-up,
+               step(8) timed, many-kernel launches per frame, the
+               compaction's dropped count, peak memory, and the image
+               against the same session in a mode off this route
+               ("discrete": windowed SSIM >= 0.995 and max abs < 5e-3;
+               POINT at light_capacity 1000: max abs <= 1e-5);
+ 17. manyshapes the many-light kernel against its plain version on 65,536
+               lanes of the live widest band and one frame's lights (the
+               expanded sub-lights for Ray/Beam).
 
 The lines before the last are the card's name and power limit as
 nvidia-smi gives them and a JSON object of the kernels (each with its
@@ -97,6 +116,20 @@ RAYBEAM_RUNS = (  # (algorithm, segment_mode, segment_eval, quadrature rule)
 )
 DEV = "cuda"
 SLOT_RAYS = 65536  # rays of the live ViewCache slice of the slot comparisons
+MANY_RUNS = (  # (label, algorithm, config, the reference session's config)
+    ("RAY discrete_expanded compact", "RAY",
+     dict(segment_mode="discrete_expanded"), dict(segment_mode="discrete")),
+    ("BEAM discrete_expanded compact", "BEAM",
+     dict(segment_mode="discrete_expanded"), dict(segment_mode="discrete")),
+    ("RAY discrete_expanded slots", "RAY",
+     dict(segment_mode="discrete_expanded", compact_view=False),
+     dict(segment_mode="discrete", compact_view=False)),
+    ("POINT light_capacity 100000", "POINT", dict(light_capacity=100_000),
+     dict()),
+)
+MANY_SLOTS = (  # (L, validity) of the manykernel phase
+    (2049, "all"), (16384, "all"), (16384, "random"), (100_000, "first"),
+    (100_000, "last"))
 UNCACHED_RUNS = (  # (algorithm, gather_eval, segment_mode, segment_eval, rule)
     ("POINT", "exact", "discrete", "exact", "midpoint"),
     ("POINT", "paired", "discrete", "exact", "midpoint"),
@@ -117,6 +150,7 @@ TERM_OPS = {"point": 13, "sphere": 18, "discrete-ray": 20,
             "discrete-beam": 25, "vrl": 52, "vbl-closed": 100}
 NODE_OPS = {"vbl-midpoint": (17, 15), "vbl-tangent": (50, 20)}
 REPLACES = {
+    "many": "volumerenderer_tpu/ops/pallas/gather_kernel.py:49",
     "lanes": "volumerenderer_tpu/ops/pallas/gather_lanes.py:63",
     "discrete": "volumerenderer_tpu/ops/pallas/gather_lanes.py:156",
     "analytic": "volumerenderer_tpu/ops/pallas/gather_lanes.py:234",
@@ -234,7 +268,7 @@ def phase_device():
 def phase_build():
     from volumerenderer_tpu_torch.ops.kernels import _build
 
-    names = ("gather_lanes", "gather_segments", "gather_vpu")
+    names = ("gather_lanes", "gather_segments", "gather_vpu", "gather_many")
     t0 = time.perf_counter()
     _build.build(names)  # one nvcc per source, started together
     dt = time.perf_counter() - t0
@@ -1001,6 +1035,198 @@ def phase_goldens():
                                  f"max abs err {err:.2e}")
 
 
+def many_validity(L: int, kind: str, gen, dev):
+    """(L,) bool: all valid, random 80%, or 50 valid slots scattered over
+    the first 256-slot tile or only over the last one."""
+    import torch
+
+    if kind == "all":
+        return torch.ones(L, dtype=torch.bool, device=dev)
+    if kind == "random":
+        return torch.rand(L, generator=gen, device=dev) < 0.8
+    valid = torch.zeros(L, dtype=torch.bool, device=dev)
+    first = 0 if kind == "first" else (L - 1) // 256 * 256
+    tile = torch.randperm(min(256, L - first), generator=gen, device=dev)
+    valid[first + tile[:50]] = True
+    return valid
+
+
+def run_many_kernel(planes, lights, sphere: bool, radius, reps=3):
+    """The many-light kernel and its plain version on the same inputs:
+    returns (max rel err, max abs err, kernel ms, plain ms)."""
+    from volumerenderer_tpu_torch.ops.kernels import gather_many as gm
+
+    kw = dict(sphere=sphere, radius=radius)
+    fn = lambda: gm.gather_many(*planes, *lights, **kw)
+    fn()  # first launch outside the timing
+    got, ms = cuda_timed(fn, reps)
+    ref, plain_ms = cuda_timed(lambda: gm.gather_many_reference(
+        *planes, *lights, max_elems=PLAIN_ELEMS, **kw))
+    if not bool((got[planes[3] == 0] == 0).all()):
+        raise AssertionError("many kernel: a zero-weight sample is not 0")
+    return rel_err(got, ref), float((got - ref).abs().max()), ms, plain_ms
+
+
+def phase_many_kernel():
+    import torch
+
+    from volumerenderer_tpu_torch.ops.kernels import gather_many as gm
+
+    dev = torch.device(DEV)
+    n0 = dict(gm.launches)
+    for ci, (L, kind) in enumerate(MANY_SLOTS):
+        planes, lpos, lint, _, _, _ = synthetic_case(SYNTH_CP, SEG_RC, L, 0,
+                                                     0, 300 + ci, dev)
+        gen = torch.Generator(device=dev).manual_seed(400 + ci)
+        valid = many_validity(L, kind, gen, dev)
+        k = int(torch.nonzero(valid)[0])
+        for c in range(3):  # a sample on a light (a sphere's centre)
+            planes[c][0, 0] = lpos[k, c]
+        for sphere in (False, True):
+            err, abs_err, ms, plain_ms = run_many_kernel(
+                planes, (lpos, lint, valid), sphere, 0.3)
+            emit("manykernel", L=L, validity=kind,
+                 valid_slots=int(valid.sum()), sphere=sphere, R=SYNTH_CP,
+                 C=SEG_RC, zero_weight_share=float(
+                     (planes[3] == 0).double().mean()),
+                 max_rel_err=err, max_abs_err=abs_err, tol=RTOL_EXACT,
+                 ms=ms, plain_ms=plain_ms)
+            if not err <= RTOL_EXACT:
+                raise AssertionError(
+                    f"many kernel vs plain: rel err {err:.3g} > "
+                    f"{RTOL_EXACT:g} (L={L} {kind} sphere={sphere})")
+        del planes
+        torch.cuda.empty_cache()
+    gm.launches.update(n0)  # comparison launches are not main-path launches
+
+
+def frame_lights(r, lights):
+    """One frame's light slots as the color pass takes them, (pos, inten,
+    valid, dropped): the photon lights for Point/Sphere; for Ray/Beam the
+    sub-light expansion compacted into expanded_light_capacity slots, with
+    the count of valid sub-lights the compaction dropped."""
+    import volumerenderer_tpu_torch as vt
+    from volumerenderer_tpu_torch.ops import lights as lo
+
+    if r.algorithm is vt.Algorithm.POINT:
+        return lights.pos_to[0], lights.intensity[0], lights.valid[0], 0
+    if r.algorithm is vt.Algorithm.SPHERE:
+        return lights.pos_from[0], lights.intensity[0], lights.valid[0], 0
+    pos, inten, valid = lo.expand_segments(
+        lights.pos_from[0], lights.pos_to[0], lights.intensity[0],
+        lights.valid[0], r.params.light_ray_step_size,
+        r.config.max_points_per_segment)
+    pos, inten, valid, dropped = lo.compact_valid(
+        pos, inten, valid, r.config.expanded_light_capacity)
+    return pos, inten, valid, int(dropped)
+
+
+def many_session(algo_name: str, config: dict):
+    import volumerenderer_tpu_torch as vt
+
+    r = bench_renderer("exact", vt.Algorithm[algo_name], **config)
+    if "light_capacity" in config:
+        r.set(max_lights=config["light_capacity"])
+    return r
+
+
+def phase_manylight(label: str, algo_name: str, config: dict,
+                    ref_config: dict):
+    """One bench-config run through the many-light route: step(4) warm-up,
+    step(8) timed; the image against the same session in ``ref_config``.
+    Returns (launches, renderer)."""
+    import torch
+
+    from volumerenderer_tpu_torch.ops.kernels import gather_many as gm
+    from volumerenderer_tpu_torch.utils.ssim import ssim
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r = many_session(algo_name, config)
+    t0 = time.perf_counter()
+    r.step(4)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    frames = 8
+    gm.launches["many"] = 0
+    t0 = time.perf_counter()
+    r.step(frames)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = gm.launches["many"]
+    peak = torch.cuda.max_memory_allocated()
+    img = r.state.accum
+    if not (bool(torch.isfinite(img).all()) and float(img.max()) > 0):
+        raise AssertionError(f"{label}: image not finite or all zero")
+    if launches == 0:
+        raise AssertionError(f"{label}: the main path launched no "
+                             "many-light kernel")
+    _, _, valid, dropped = frame_lights(r, r.lights)
+    rr = many_session(algo_name, ref_config)
+    rr.step(4)
+    rr.step(frames)
+    torch.cuda.synchronize()
+    ref = rr.state.accum
+    err = float((img - ref).abs().max())
+    fields = dict(run=label, ms_per_frame=dt / frames * 1e3,
+                  mrays_per_s=BENCH_W * BENCH_H * frames / dt / 1e6,
+                  warmup_s=warm_s, launches=launches,
+                  launches_per_frame=launches / frames,
+                  slots=int(valid.shape[0]),
+                  valid_slots_last_frame=int(valid.sum()),
+                  dropped_last_frame=dropped, max_memory_allocated=peak,
+                  accum_checksum=float(img.double().sum()),
+                  reference=ref_config, vs_reference_max_abs=err)
+    if algo_name == "POINT":
+        ok = err <= 1e-5
+    else:
+        s = ssim(img.cpu().numpy(), ref.cpu().numpy())
+        fields["vs_reference_ssim"] = s
+        ok = s >= 0.995 and err < 5e-3
+    emit("manylight", **fields, vs_reference_ok=ok)
+    if not ok:
+        raise AssertionError(f"{label}: image differs from the reference "
+                             "session beyond its bar")
+    del rr
+    return launches, r
+
+
+def phase_many_shapes(r, label: str):
+    """The many-light kernel against its plain version on SEG_RC lanes of
+    the live widest band and the next frame's light slots."""
+    import volumerenderer_tpu_torch as vt
+    from volumerenderer_tpu_torch.ops.kernels import gather_many as gm
+    from volumerenderer_tpu_torch.render import photon
+
+    band = max(r._view.bands, key=lambda b: b.wx.shape[0])
+    lanes = slice(0, min(SEG_RC, band.wx.shape[1]))
+    planes = [t[:, lanes].contiguous()
+              for t in (band.wx, band.wy, band.wz, band.weight)]
+    lights = photon.generate_lights(
+        r.grid, r.params, [r.state.frame_count + 1], r.config,
+        max_steps=r._max_steps)
+    pos, inten, valid, dropped = frame_lights(r, lights)
+    sphere = r.algorithm in (vt.Algorithm.SPHERE, vt.Algorithm.BEAM)
+    n0 = dict(gm.launches)
+    err, abs_err, ms, plain_ms = run_many_kernel(
+        planes, (pos, inten, valid), sphere, r.params.beam_radius, reps=5)
+    gm.launches.update(n0)  # comparison launches are not main-path launches
+    n_valid = int(valid.sum())
+    bound_ms, bound_by = slot_bound(
+        planes[3], n_valid * TERM_OPS["sphere" if sphere else "point"],
+        17 * valid.shape[0])
+    emit("manyshapes", run=label, Cp=planes[0].shape[0],
+         Rc=planes[0].shape[1], live_samples=int((planes[3] != 0).sum()),
+         slots=int(valid.shape[0]), valid_slots=n_valid, dropped=dropped,
+         max_rel_err=err, max_abs_err=abs_err, tol=RTOL_EXACT, ms=ms,
+         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    if not err <= RTOL_EXACT:
+        raise AssertionError(f"{label}: many kernel vs plain at the live "
+                             f"shapes: rel err {err:.3g} > {RTOL_EXACT:g}")
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
 def main() -> int:
     if not (PKG / "__init__.py").is_file():
         print(f"chip_smoke: {PKG} not found; run from a checkout of the "
@@ -1036,6 +1262,13 @@ def main() -> int:
         del r
     phase_drag()
     phase_goldens()
+    phase_many_kernel()
+    many_runs = {}
+    for label, algo_name, config, ref_config in MANY_RUNS:
+        launches, r = phase_manylight(label, algo_name, config, ref_config)
+        if config.get("compact_view", True):
+            many_runs[label] = (launches, phase_many_shapes(r, label))
+        del r
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
 
@@ -1061,6 +1294,13 @@ def main() -> int:
                  f"{tier if key == 'vpu' else seg_tier}]", route="cuda",
             source="volumerenderer_tpu_torch/csrc/gather_vpu.cu",
             replaces=REPLACES[key], launches=launches, **v))
+    for variant, label in (("point", MANY_RUNS[0][0]),
+                           ("sphere", MANY_RUNS[1][0])):
+        launches, v = many_runs[label]
+        kernels.append(dict(
+            name=f"gather_many[{variant},exact]", route="cuda",
+            source="volumerenderer_tpu_torch/csrc/gather_many.cu",
+            replaces=REPLACES["many"], launches=launches, **v))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -110,12 +110,23 @@ def test_wrapper_dispatch_and_validation():
 
 
 def test_gather_planes_many_lights_not_ported():
+    """More than SMEM_LIGHT_LIMIT slots (not ported until the many-light
+    gather was): the lane layout returns the per-lane sum over samples of
+    the many-light plain version's weighted sums, bit for bit."""
+    from volumerenderer_tpu_torch.ops.kernels import gather_many as tmany
+
     px, py, pz, w, *_ = case(1)
     L = tgather.SMEM_LIGHT_LIMIT + 1
-    with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
-        tgather.gather_planes(T(px), T(py), T(pz), T(w),
-                              torch.zeros(L, 3), torch.zeros(L),
-                              torch.ones(L, dtype=torch.bool), sphere=False)
+    rs = np.random.RandomState(4)
+    lpos = T((rs.randn(L, 3) * 8 + 15).astype(np.float32))
+    lint = T((rs.rand(L) * 20).astype(np.float32))
+    valid = T(rs.rand(L) < 0.5)
+    planes = (T(px), T(py), T(pz), T(w))
+    got = tgather.gather_planes(*planes, lpos, lint, valid, sphere=False)
+    want = tmany.gather_many_reference(*planes, lpos, lint, valid,
+                                       sphere=False).sum(0)
+    assert got.shape == (RC,) and got.any()
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
     # layout="slots": the same planes as (R, C) slots, per-sample sums.
     out = tgather.gather_planes(T(px), T(py), T(pz), T(w), torch.zeros(1, 3),
                                 torch.ones(1), torch.ones(1, dtype=torch.bool),

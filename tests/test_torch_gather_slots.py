@@ -25,6 +25,7 @@ from test_torch_gather_segments import (
 )
 from volumerenderer_tpu.ops import gather as jgather
 from volumerenderer_tpu_torch.ops import gather as tgather
+from volumerenderer_tpu_torch.ops.kernels import gather_many as tmany
 from volumerenderer_tpu_torch.ops.kernels import gather_vpu as tvpu
 
 T = torch.as_tensor
@@ -229,8 +230,8 @@ def test_guard_samples_match_pallas(case):
 def test_wrappers_dispatch_and_validate(case):
     """CPU tensors run the plain versions (no launch); the wrappers take
     (R, C) f32 contiguous planes and raise on anything else; more than 2048
-    light slots is the unported many-light gather; an unknown layout is an
-    error."""
+    light slots take the many-light gather (its plain version here); an
+    unknown layout is an error."""
     planes = tuple(map(T, case["planes"]))
     w = T(case["w"])
     lpos, lint, lvalid = map(T, case["lights"])
@@ -262,10 +263,13 @@ def test_wrappers_dispatch_and_validate(case):
                                       sphere_radius=RADIUS,
                                       quad_rule="simpson")
     n = tgather.SMEM_LIGHT_LIMIT + 1
-    with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
-        tgather.gather_planes(*planes, w, torch.zeros(n, 3), torch.zeros(n),
-                              torch.ones(n, dtype=torch.bool), sphere=False,
+    many = (torch.cat([lpos] * 50)[:n], torch.cat([lint] * 50)[:n],
+            torch.cat([lvalid] * 50)[:n])
+    e = tgather.gather_planes(*planes, w, *many, sphere=False,
                               layout="slots")
+    f = tmany.gather_many_reference(*planes, w, *many, sphere=False)
+    assert e.shape == (R, C) and e.any()
+    np.testing.assert_array_equal(e.numpy(), f.numpy())
     with pytest.raises(ValueError, match="layout"):
         tgather.gather_segments(*planes, w, *segs, layout="rows")
 

@@ -88,8 +88,11 @@ def test_lights_from_numpy_round_trip():
 
 
 def test_discrete_expanded_over_capacity_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        vt.StaticConfig(segment_mode="discrete_expanded")
+    """discrete_expanded above 2048 slots raised until the many-light
+    gather was ported: the default capacity (16,384) and a lane-gather one
+    are now accepted; unknown values of the segment options still raise."""
+    assert vt.StaticConfig(
+        segment_mode="discrete_expanded").expanded_light_capacity == 16384
     vt.StaticConfig(segment_mode="discrete_expanded",
                     expanded_light_capacity=2048)
     for field, value in (("segment_mode", "expanded"),

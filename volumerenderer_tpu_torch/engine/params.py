@@ -17,8 +17,6 @@ import enum
 
 import numpy as np
 
-from ..ops.lights import SMEM_LIGHT_LIMIT
-
 
 class Algorithm(enum.IntEnum):
     """Algorithm ids, same order as the reference enum (src/main.cpp:65-68)."""
@@ -109,6 +107,9 @@ class StaticConfig:
     width: int = 1024
     height: int = 1024
     num_photons: int = 16  # 1x1x1 dispatch x 4x4 local (src/main.cpp:814)
+    # Light slots per frame (Point/Sphere); expanded_light_capacity below is
+    # Ray/Beam's in "discrete_expanded".  Above 2048 slots (ops.lights.
+    # SMEM_LIGHT_LIMIT) the frame takes the many-light gather.
     light_capacity: int = 1000
     max_march_steps: int = 2500
     max_photon_steps: int = 4096
@@ -198,14 +199,6 @@ class StaticConfig:
                     f"StaticConfig.{field}={value!r} is not ported to "
                     f"PyTorch yet: {item}"
                 )
-        if (self.segment_mode == "discrete_expanded"
-                and self.expanded_light_capacity > SMEM_LIGHT_LIMIT):
-            raise NotImplementedError(
-                f"StaticConfig.segment_mode='discrete_expanded' with "
-                f"expanded_light_capacity={self.expanded_light_capacity} > "
-                f"{SMEM_LIGHT_LIMIT} needs the many-light gather (gather_mxu), "
-                "not ported to PyTorch yet: ROADMAP Queue 1 item 12"
-            )
         if self.gather_samples:
             raise NotImplementedError(
                 "StaticConfig.gather_samples > 0 needs the host-banded "

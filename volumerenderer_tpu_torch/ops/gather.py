@@ -6,6 +6,8 @@
 discrete sub-light sum or the analytic segment integral.  ``layout``
 "lanes": (Cp, Rc) lane planes of a CompactView -> (Rc,) per-ray sums;
 "slots": (R, C) planes of a ViewCache -> (R, C) weighted per-sample sums.
+Above SMEM_LIGHT_LIMIT light slots, both layouts take the many-light
+gather (kernels/gather_many.py), as the reference package does.
 ``*_xla`` are the plain oracles of the reference package's ``impl="xla"``,
 with exact transcendentals.
 """
@@ -17,6 +19,7 @@ import torch
 from .kernels import gather_vpu as vpu
 from .kernels import segment_math as sm
 from .kernels.gather_lanes import gather_lanes
+from .kernels.gather_many import gather_many
 from .kernels.gather_segments import (
     gather_segments_analytic_lanes, gather_segments_discrete_lanes,
 )
@@ -50,22 +53,39 @@ def gather_xla(samples, l_pos, l_int, l_valid, *, sphere: bool, radius=0.0,
     return acc
 
 
+def gather(samples, l_pos, l_int, l_valid, *, sphere: bool, radius=0.0,
+           center=None):
+    """Samples (N, 3) -> (N,) unweighted radiance sums over any number of
+    light slots with a per-slot validity, through the many-light gather.
+    ``center`` (the reference kernel's coordinate shift) is accepted for
+    signature parity and does not change the result: distances are taken
+    by direct differences."""
+    del center
+    p = samples.T.contiguous()
+    ones = torch.ones(samples.shape[0], dtype=torch.float32,
+                      device=samples.device)
+    return gather_many(p[0], p[1], p[2], ones, l_pos, l_int, l_valid,
+                       sphere=sphere, radius=radius)
+
+
 def gather_planes(px, py, pz, weight, l_pos, l_int, l_valid, *,
                   sphere: bool, radius=0.0, layout: str = "lanes",
                   lane_need=None, paired: bool = False):
     """Gather over lane planes (Cp, Rc) -> (Rc,) per-ray sums
     ``sum_samples(w * sum_lights)``, or (``layout="slots"``) over (R, C)
-    planes -> (R, C) weighted sums ``w * sum_lights``.  The valid light
-    slots must form one contiguous range (true for photon lights); its start
-    and count stay on the device.  ``paired=True``: one divide per 4
-    lights."""
+    planes -> (R, C) weighted sums ``w * sum_lights``.
+
+    Up to SMEM_LIGHT_LIMIT slots the valid slots must form one contiguous
+    range (true for photon lights and compacted expansions); its start and
+    count stay on the device; ``paired=True``: one divide per 4 lights.
+    Above it, the many-light gather takes any validity pattern, and
+    ``paired`` and ``lane_need`` are ignored, as in the reference package;
+    the lane layout sums the (Cp, Rc) weighted sums over samples here."""
     _check_layout("gather_planes", layout)
     if l_pos.shape[0] > SMEM_LIGHT_LIMIT:
-        raise NotImplementedError(
-            f"{l_pos.shape[0]} light slots > {SMEM_LIGHT_LIMIT}: the "
-            "many-light gather (gather_mxu) is not ported to PyTorch yet: "
-            "ROADMAP Queue 2 item 7"
-        )
+        out = gather_many(px, py, pz, weight, l_pos, l_int, l_valid,
+                          sphere=sphere, radius=radius)
+        return out if layout == "slots" else torch.sum(out, dim=0)
     valid_i = l_valid.to(torch.int32)
     start = torch.argmax(valid_i)  # first valid slot (0 if none; count 0)
     count = valid_i.sum()

@@ -15,8 +15,10 @@ import torch
 GUARD = 1e-4  # d^2 guard from common_functions.h:190
 FOUR_PI = 4.0 * 3.14159265358979323846
 
-# Light slots the lane gather takes; above it the reference package takes
-# its many-light matmul kernel (gather_mxu), not ported yet.
+# Light slots the lane and slot point gathers take; above it both layouts
+# take the many-light gather (kernels/gather_many.py), the threshold at
+# which the reference package takes its gather_mxu, so one config runs the
+# same kernel body in both packages.
 SMEM_LIGHT_LIMIT = 2048
 
 
