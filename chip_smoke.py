@@ -66,16 +66,18 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                sample on a light (a sphere's centre);
  16. manylight the bench config through the many-light route: RAY and BEAM
                segment_mode="discrete_expanded" at 16,384 slots (compact
-               view), RAY discrete_expanded through the slots view, POINT at
-               light_capacity = max_lights = 100,000: step(4) warm-up,
-               step(8) timed, many-kernel launches per frame, the
+               view), RAY discrete_expanded through the slots view, POINT and
+               SPHERE at light_capacity = max_lights = 100,000: step(4)
+               warm-up, step(8) timed, many-kernel launches per frame, the
                compaction's dropped count, peak memory, and the image
                against the same session in a mode off this route
                ("discrete": windowed SSIM >= 0.995 and max abs < 5e-3;
-               POINT at light_capacity 1000: max abs <= 1e-5);
- 17. manyshapes the many-light kernel against its plain version on 65,536
-               lanes of the live widest band and one frame's lights (the
-               expanded sub-lights for Ray/Beam).
+               POINT/SPHERE at light_capacity 1000: max abs <= 1e-5);
+ 17. manyshapes after each manylight run, the many-light kernel against its
+               plain version on one frame's lights (the expanded sub-lights
+               for Ray/Beam), on a timed slice (65,536 lanes of the widest
+               band, or 65,536 rays of the ViewCache) and then on the whole
+               widest band or the whole ViewCache, as a frame launches it.
 
 The lines before the last are the card's name and power limit as
 nvidia-smi gives them and a JSON object of the kernels (each with its
@@ -125,6 +127,8 @@ MANY_RUNS = (  # (label, algorithm, config, the reference session's config)
      dict(segment_mode="discrete_expanded", compact_view=False),
      dict(segment_mode="discrete", compact_view=False)),
     ("POINT light_capacity 100000", "POINT", dict(light_capacity=100_000),
+     dict()),
+    ("SPHERE light_capacity 100000", "SPHERE", dict(light_capacity=100_000),
      dict()),
 )
 MANY_SLOTS = (  # (L, validity) of the manykernel phase
@@ -1100,27 +1104,6 @@ def phase_many_kernel():
     gm.launches.update(n0)  # comparison launches are not main-path launches
 
 
-def frame_lights(r, lights):
-    """One frame's light slots as the color pass takes them, (pos, inten,
-    valid, dropped): the photon lights for Point/Sphere; for Ray/Beam the
-    sub-light expansion compacted into expanded_light_capacity slots, with
-    the count of valid sub-lights the compaction dropped."""
-    import volumerenderer_tpu_torch as vt
-    from volumerenderer_tpu_torch.ops import lights as lo
-
-    if r.algorithm is vt.Algorithm.POINT:
-        return lights.pos_to[0], lights.intensity[0], lights.valid[0], 0
-    if r.algorithm is vt.Algorithm.SPHERE:
-        return lights.pos_from[0], lights.intensity[0], lights.valid[0], 0
-    pos, inten, valid = lo.expand_segments(
-        lights.pos_from[0], lights.pos_to[0], lights.intensity[0],
-        lights.valid[0], r.params.light_ray_step_size,
-        r.config.max_points_per_segment)
-    pos, inten, valid, dropped = lo.compact_valid(
-        pos, inten, valid, r.config.expanded_light_capacity)
-    return pos, inten, valid, int(dropped)
-
-
 def many_session(algo_name: str, config: dict):
     import volumerenderer_tpu_torch as vt
 
@@ -1138,6 +1121,7 @@ def phase_manylight(label: str, algo_name: str, config: dict,
     import torch
 
     from volumerenderer_tpu_torch.ops.kernels import gather_many as gm
+    from volumerenderer_tpu_torch.render import color
     from volumerenderer_tpu_torch.utils.ssim import ssim
 
     torch.cuda.empty_cache()
@@ -1161,7 +1145,8 @@ def phase_manylight(label: str, algo_name: str, config: dict,
     if launches == 0:
         raise AssertionError(f"{label}: the main path launched no "
                              "many-light kernel")
-    _, _, valid, dropped = frame_lights(r, r.lights)
+    _, _, valid, dropped = color._expanded_lights(
+        r.lights, r.params, r.algorithm, r.config, 0)
     rr = many_session(algo_name, ref_config)
     rr.step(4)
     rr.step(frames)
@@ -1174,10 +1159,10 @@ def phase_manylight(label: str, algo_name: str, config: dict,
                   launches_per_frame=launches / frames,
                   slots=int(valid.shape[0]),
                   valid_slots_last_frame=int(valid.sum()),
-                  dropped_last_frame=dropped, max_memory_allocated=peak,
+                  dropped_last_frame=int(dropped), max_memory_allocated=peak,
                   accum_checksum=float(img.double().sum()),
                   reference=ref_config, vs_reference_max_abs=err)
-    if algo_name == "POINT":
+    if algo_name in ("POINT", "SPHERE"):
         ok = err <= 1e-5
     else:
         s = ssim(img.cpu().numpy(), ref.cpu().numpy())
@@ -1192,38 +1177,56 @@ def phase_manylight(label: str, algo_name: str, config: dict,
 
 
 def phase_many_shapes(r, label: str):
-    """The many-light kernel against its plain version on SEG_RC lanes of
-    the live widest band and the next frame's light slots."""
+    """The many-light kernel against its plain version on the next frame's
+    light slots, on a slice of the live view (SEG_RC lanes of the widest
+    band, or SLOT_RAYS rays of a ViewCache around the image centre), then
+    on the whole widest band or the whole ViewCache, as one frame's launch
+    takes it."""
     import volumerenderer_tpu_torch as vt
     from volumerenderer_tpu_torch.ops.kernels import gather_many as gm
-    from volumerenderer_tpu_torch.render import photon
+    from volumerenderer_tpu_torch.render import color, photon
 
-    band = max(r._view.bands, key=lambda b: b.wx.shape[0])
-    lanes = slice(0, min(SEG_RC, band.wx.shape[1]))
-    planes = [t[:, lanes].contiguous()
-              for t in (band.wx, band.wy, band.wz, band.weight)]
+    if r.config.compact_view:
+        v = max(r._view.bands, key=lambda b: b.wx.shape[0])
+        cut = lambda t: t[:, :min(SEG_RC, t.shape[1])]
+    else:
+        v = r._view
+        a = max(0, min(v.n_rays // 2 - SLOT_RAYS // 2,
+                       v.wx.shape[0] - SLOT_RAYS))
+        cut = lambda t: t[a:a + SLOT_RAYS]
+    full = (v.wx, v.wy, v.wz, v.weight)
+    planes = [cut(t).contiguous() for t in full]
     lights = photon.generate_lights(
         r.grid, r.params, [r.state.frame_count + 1], r.config,
         max_steps=r._max_steps)
-    pos, inten, valid, dropped = frame_lights(r, lights)
+    pos, inten, valid, dropped = color._expanded_lights(
+        lights, r.params, r.algorithm, r.config, 0)
     sphere = r.algorithm in (vt.Algorithm.SPHERE, vt.Algorithm.BEAM)
+    n_valid = int(valid.sum())
+    per_sample = n_valid * TERM_OPS["sphere" if sphere else "point"]
     n0 = dict(gm.launches)
     err, abs_err, ms, plain_ms = run_many_kernel(
         planes, (pos, inten, valid), sphere, r.params.beam_radius, reps=5)
+    full_err, full_abs, full_ms, full_plain_ms = run_many_kernel(
+        full, (pos, inten, valid), sphere, r.params.beam_radius)
     gm.launches.update(n0)  # comparison launches are not main-path launches
-    n_valid = int(valid.sum())
-    bound_ms, bound_by = slot_bound(
-        planes[3], n_valid * TERM_OPS["sphere" if sphere else "point"],
-        17 * valid.shape[0])
-    emit("manyshapes", run=label, Cp=planes[0].shape[0],
-         Rc=planes[0].shape[1], live_samples=int((planes[3] != 0).sum()),
-         slots=int(valid.shape[0]), valid_slots=n_valid, dropped=dropped,
+    bound_ms, bound_by = slot_bound(planes[3], per_sample, 17 * valid.shape[0])
+    full_bound_ms, _ = slot_bound(full[3], per_sample, 17 * valid.shape[0])
+    emit("manyshapes", run=label, shape=list(planes[0].shape),
+         live_samples=int((planes[3] != 0).sum()),
+         slots=int(valid.shape[0]), valid_slots=n_valid, dropped=int(dropped),
          max_rel_err=err, max_abs_err=abs_err, tol=RTOL_EXACT, ms=ms,
-         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-    if not err <= RTOL_EXACT:
-        raise AssertionError(f"{label}: many kernel vs plain at the live "
-                             f"shapes: rel err {err:.3g} > {RTOL_EXACT:g}")
-    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+         full_shape=list(full[0].shape),
+         full_live_samples=int((full[3] != 0).sum()),
+         full_max_rel_err=full_err, full_max_abs_err=full_abs,
+         full_ms=full_ms, full_plain_ms=full_plain_ms,
+         full_bound_ms=full_bound_ms)
+    if not max(err, full_err) <= RTOL_EXACT:
+        raise AssertionError(
+            f"{label}: many kernel vs plain at the live shapes: rel err "
+            f"{err:.3g} (slice), {full_err:.3g} (whole) > {RTOL_EXACT:g}")
+    return dict(max_abs_err=max(abs_err, full_abs), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
@@ -1266,8 +1269,7 @@ def main() -> int:
     many_runs = {}
     for label, algo_name, config, ref_config in MANY_RUNS:
         launches, r = phase_manylight(label, algo_name, config, ref_config)
-        if config.get("compact_view", True):
-            many_runs[label] = (launches, phase_many_shapes(r, label))
+        many_runs[label] = (launches, phase_many_shapes(r, label))
         del r
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")

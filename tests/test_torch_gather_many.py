@@ -79,7 +79,7 @@ def gap(points, lpos, valid, sphere):
 
 def port_gather(s, lpos, lint, valid, sphere):
     return tgather.gather(T(s), T(lpos), T(lint), T(valid), sphere=sphere,
-                          radius=RADIUS, center=CENTER).numpy()
+                          radius=RADIUS).numpy()
 
 
 @pytest.mark.parametrize("L,kind", CASES, ids=IDS)

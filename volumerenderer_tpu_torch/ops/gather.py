@@ -53,14 +53,11 @@ def gather_xla(samples, l_pos, l_int, l_valid, *, sphere: bool, radius=0.0,
     return acc
 
 
-def gather(samples, l_pos, l_int, l_valid, *, sphere: bool, radius=0.0,
-           center=None):
+def gather(samples, l_pos, l_int, l_valid, *, sphere: bool, radius=0.0):
     """Samples (N, 3) -> (N,) unweighted radiance sums over any number of
     light slots with a per-slot validity, through the many-light gather.
-    ``center`` (the reference kernel's coordinate shift) is accepted for
-    signature parity and does not change the result: distances are taken
-    by direct differences."""
-    del center
+    Distances are taken by direct differences, so the reference kernel's
+    coordinate shift (its ``center``) has no counterpart here."""
     p = samples.T.contiguous()
     ones = torch.ones(samples.shape[0], dtype=torch.float32,
                       device=samples.device)

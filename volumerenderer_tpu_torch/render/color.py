@@ -468,21 +468,21 @@ def merge_row_views(views) -> CompactView:
 
 def _expanded_lights(lights: LightArray, params, algorithm: Algorithm,
                      config: StaticConfig, frame: int):
-    """This frame's flat (pos, intensity, valid) light arrays: the photon
-    lights for Point/Sphere; for Ray/Beam the sub-light expansion, compacted
-    into ``expanded_light_capacity`` slots."""
+    """This frame's flat (pos, intensity, valid) light arrays and the count
+    of valid lights left out: the photon lights for Point/Sphere (none left
+    out); for Ray/Beam the sub-light expansion, compacted into
+    ``expanded_light_capacity`` slots (the overflow is dropped)."""
     inten, valid = lights.intensity[frame], lights.valid[frame]
     if algorithm is Algorithm.POINT:
-        return lights.pos_to[frame], inten, valid
+        return lights.pos_to[frame], inten, valid, 0
     if algorithm is Algorithm.SPHERE:
-        return lights.pos_from[frame], inten, valid
+        return lights.pos_from[frame], inten, valid, 0
     pos, inten, valid = lights_ops.expand_segments(
         lights.pos_from[frame], lights.pos_to[frame], inten, valid,
         params.light_ray_step_size, config.max_points_per_segment,
     )
-    pos, inten, valid, _dropped = lights_ops.compact_valid(
-        pos, inten, valid, config.expanded_light_capacity)
-    return pos, inten, valid
+    return lights_ops.compact_valid(pos, inten, valid,
+                                    config.expanded_light_capacity)
 
 
 def _shader(params, lights, algorithm, config, frame: int):
@@ -514,8 +514,8 @@ def _shader(params, lights, algorithm, config, frame: int):
                 paired=seg_paired,
             )
     else:
-        l_pos, l_int, l_valid = _expanded_lights(lights, params, algorithm,
-                                                 config, frame)
+        l_pos, l_int, l_valid, _dropped = _expanded_lights(
+            lights, params, algorithm, config, frame)
         sphere = algorithm in (Algorithm.SPHERE, Algorithm.BEAM)
 
         def shade(wx, wy, wz, w, layout, lane_need):
