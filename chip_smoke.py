@@ -19,7 +19,8 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                ns = 0, zero length, ns % 4 != 0 and > 512 sub-lights, a
                range with start > 0 and an odd count, samples on a
                sub-light, at a Beam centre, inside a beam (q < r), and
-               projecting outside [0, L];
+               projecting outside [0, L]; the discrete ones again on a
+               table of more sub-lights than one stage of the kernel holds;
   5. main      the bench config (1920x1080 cloud(n=96), Point/VPL,
                camera (0, 20, -75), light (0, 20, 20)) through
                Renderer(..., device=DEV) in both gather tiers: step(8)
@@ -31,8 +32,9 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                analytic paired, BEAM discrete exact and BEAM analytic
                closed paired: step(8) warm-up, then step(16) timed; launches
                of each segment kernel per frame;
-  9. segshapes each segment kernel against its plain version on 65,536
-               lanes of the live widest band and one frame's segments;
+  9. segshapes each segment kernel against its plain version on one
+               frame's segments, on 65,536 lanes of the live widest band
+               and on the whole widest band (as a frame launches it);
  10. slotkernel the 16 slot-kernel templates (csrc/gather_vpu.cu) against
                their plain versions at synthetic (R, C) = (144, 65536) slot
                planes, about half of them at zero weight, with the segment
@@ -82,7 +84,9 @@ Phases, each printed as one JSON line; any failure exits nonzero:
 The lines before the last are the card's name and power limit as
 nvidia-smi gives them and a JSON object of the kernels (each with its
 bound: the larger of its f32 operations at 67 TFLOP/s and its bytes at
-3.35 TB/s, counted for this run's inputs); the last line is
+3.35 TB/s, counted for this run's inputs; the lane segment kernels and the
+many-light kernel at the whole shape a frame launches, the others at
+their live slice); the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
 repository, it exits nonzero and prints no result.
 """
@@ -142,16 +146,21 @@ UNCACHED_RUNS = (  # (algorithm, gather_eval, segment_mode, segment_eval, rule)
     ("BEAM", "exact", "analytic", "paired", "closed"),
 )
 # The card's peaks (H100 SXM data sheet, at a 700 W limit): f32 outside
-# the tensor cores, and device memory.
+# the tensor cores, and device memory.  The 67 TFLOP/s counts a fused
+# multiply-add as two operations (132 SMs x 128 lanes x 2 x ~1.98 GHz), so
+# code that fuses nothing reaches at most about half of it.
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 # f32 operations per term, counted from csrc/gather_terms.cuh (each add,
 # subtract, multiply, divide, square root, min, max, compare and select
 # one): per (sample, light) for point and sphere lights, per (sample,
-# sub-light) for the discrete segments, per (sample, segment) for the
-# closed forms, and (per-segment setup, per node) for the quadratures.
-TERM_OPS = {"point": 13, "sphere": 18, "discrete-ray": 20,
-            "discrete-beam": 25, "vrl": 52, "vbl-closed": 100}
+# segment) for the closed forms, and (per-segment setup, per node) for the
+# quadratures.  A discrete segment's sub-lights are point (Ray) or sphere
+# (Beam) lights: their sums count the point or sphere term per (sample,
+# sub-light), and the expansion (a convert, a multiply, 3 multiplies and 3
+# adds) once per sub-light, whichever kernel does it and however often.
+TERM_OPS = {"point": 13, "sphere": 18, "vrl": 52, "vbl-closed": 100}
+EXPAND_OPS = 8
 NODE_OPS = {"vbl-midpoint": (17, 15), "vbl-tangent": (50, 20)}
 REPLACES = {
     "many": "volumerenderer_tpu/ops/pallas/gather_kernel.py:49",
@@ -212,18 +221,24 @@ def bound(ops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def sublights(segs, step) -> int:
+    """The discrete sub-lights of a segment table (0 outside the valid
+    range), from this run's table."""
+    from volumerenderer_tpu_torch.ops.kernels import gather_segments as gs
+
+    return int(gs.discrete_cols(*segs, step)[1].sum())
+
+
 def ops_per_sample(variant: str, lights=None, segs=None, step=0.3,
                    nodes=16) -> int:
     """f32 operations one used sample costs: ``lights`` the light count for
     point/sphere; ``segs`` (pos_from, pos_to, intensity, valid) for the
-    segment variants (discrete: their sub-lights, from this run's table)."""
+    segment variants (discrete: the point or sphere term per sub-light)."""
     if variant in ("point", "sphere"):
         return int(lights) * TERM_OPS[variant]
-    from volumerenderer_tpu_torch.ops.kernels import gather_segments as gs
-
     if variant.startswith("discrete"):
-        ns = gs.discrete_cols(*segs, step)[1]  # 0 outside the valid range
-        return int(ns.sum()) * TERM_OPS[variant]
+        term = "sphere" if variant == "discrete-beam" else "point"
+        return sublights(segs, step) * TERM_OPS[term]
     count = int(segs[3].sum())
     if variant in NODE_OPS:
         setup, per_node = NODE_OPS[variant]
@@ -239,20 +254,33 @@ def variant_of(algo_name: str, mode: str, rule: str) -> str:
     return "vrl" if algo_name == "RAY" else f"vbl-{rule}"
 
 
-def lane_bound(wm, lane_need, per_sample_ops, table_bytes):
-    """Bound of a lane-kernel call: the used samples (j < lane_need) read
-    16 B each, lane_need and the per-lane output 8 B a lane."""
+def call_ops(variant: str, segs=None, step=0.3) -> int:
+    """f32 operations a call costs once, whatever its samples: the
+    sub-light expansion of the discrete variants."""
+    if variant.startswith("discrete"):
+        return sublights(segs, step) * EXPAND_OPS
+    return 0
+
+
+def lane_bound(wm, lane_need, per_sample_ops, table_bytes, once_ops=0):
+    """Bound of a lane-kernel call: the terms of the live samples (w != 0;
+    a zero weight adds 0), the used samples' weights (j < lane_need) and
+    the live ones' positions read once, lane_need and the per-lane output
+    8 B a lane."""
     Cp, Rc = wm.shape
     used = int(lane_need.clamp(max=Cp).sum())
-    return bound(used * per_sample_ops, 16 * used + 8 * Rc + table_bytes)
+    live = int((wm != 0).sum())
+    return bound(live * per_sample_ops + once_ops,
+                 4 * used + 12 * live + 8 * Rc + table_bytes)
 
 
-def slot_bound(wm, per_sample_ops, table_bytes):
+def slot_bound(wm, per_sample_ops, table_bytes, once_ops=0):
     """Bound of a slot-kernel call: every weight read and every output
     written (8 B a sample), the live samples' positions (12 B)."""
     N = wm.numel()
     live = int((wm != 0).sum())
-    return bound(live * per_sample_ops, 8 * N + 12 * live + table_bytes)
+    return bound(live * per_sample_ops + once_ops,
+                 8 * N + 12 * live + table_bytes)
 
 
 def phase_device():
@@ -431,13 +459,32 @@ def phase_segment_kernel():
 
     dev = torch.device(DEV)
     planes, segs, need = segment_case(SYNTH_CP, SEG_RC, 7, dev)
+    # A second table for the discrete kernel: 11 valid segments of 210
+    # sub-lights, more than one stage of its sub-light table holds, a
+    # segment split between two stages.  They lie beside the samples' cloud
+    # (40 units along x), so that no sample sits on a sub-light: a long sum
+    # of near-singular terms differs from the plain version's pairwise sum
+    # by its order alone.
+    gen = torch.Generator(device=dev).manual_seed(8)
+    offset = torch.tensor([40.0, 0.0, 0.0], device=dev)
+    pos_from = torch.randn((12, 3), generator=gen, device=dev) * 8 + 15 + offset
+    u = torch.randn((12, 3), generator=gen, device=dev)
+    pos_to = pos_from + 63.05 * u / torch.linalg.vector_norm(u, dim=1,
+                                                              keepdim=True)
+    long_segs = (pos_from, pos_to, torch.rand(12, generator=gen, device=dev)
+                 * 30, torch.arange(12, device=dev) >= 1)
+    runs = [(label, kind, kw, segs) for label, kind, kw in segment_variants()]
+    runs += [(label + " long table", kind, kw, long_segs)
+             for label, kind, kw in segment_variants() if kind == "discrete"]
     n0 = dict(gs.launches)
-    for label, kind, kw in segment_variants():
+    for label, kind, kw, table in runs:
         err, abs_err, ms, plain_ms = run_segment_kernel(
-            kind, planes, segs, need, 0.3, kw)
+            kind, planes, table, need, 0.3, kw)
         emit("segkernel", variant=label, Cp=SYNTH_CP, Rc=SEG_RC,
-             segments=int(segs[3].sum()), max_rel_err=err, max_abs_err=abs_err,
-             tol=RTOL_SEGMENT, ms=ms, plain_ms=plain_ms)
+             segments=int(table[3].sum()),
+             sublights=sublights(table, 0.3) if kind == "discrete" else None,
+             max_rel_err=err, max_abs_err=abs_err, tol=RTOL_SEGMENT, ms=ms,
+             plain_ms=plain_ms)
         if not err <= RTOL_SEGMENT:
             raise AssertionError(f"segment kernel {label} vs plain: rel err "
                                  f"{err:.3g} > {RTOL_SEGMENT:g}")
@@ -611,15 +658,16 @@ def phase_raybeam(algo_name: str, mode: str, tier: str, rule: str):
 
 
 def phase_segment_shapes(r, algo_name: str, mode: str, tier: str, rule: str):
-    """The run's segment kernel against its plain version on SEG_RC lanes of
-    the live widest band and the next frame's segments."""
+    """The run's segment kernel against its plain version on the next
+    frame's segments, on SEG_RC lanes of the live widest band, then on the
+    whole widest band, as one frame's launch takes it."""
     from volumerenderer_tpu_torch.ops.kernels import gather_segments as gs
     from volumerenderer_tpu_torch.render import photon
 
     band = max(r._view.bands, key=lambda b: b.wx.shape[0])
     lanes = slice(0, min(SEG_RC, band.wx.shape[1]))
-    planes = [t[:, lanes].contiguous()
-              for t in (band.wx, band.wy, band.wz, band.weight)]
+    full = (band.wx, band.wy, band.wz, band.weight)
+    planes = [t[:, lanes].contiguous() for t in full]
     need = band.lane_need[lanes].contiguous()
     lights = photon.generate_lights(
         r.grid, r.params, [r.state.frame_count + 1], r.config,
@@ -631,24 +679,41 @@ def phase_segment_shapes(r, algo_name: str, mode: str, tier: str, rule: str):
               else None, paired=tier == "paired")
     if kind == "analytic":
         kw.update(quad_rule=rule, quad_nodes=r.config.beam_quadrature_nodes)
+    step = r.params.light_ray_step_size
     n0 = dict(gs.launches)
     err, abs_err, ms, plain_ms = run_segment_kernel(
-        kind, planes, segs, need, r.params.light_ray_step_size, kw, reps=5)
+        kind, planes, segs, need, step, kw, reps=5)
+    full_err, full_abs, full_ms, full_plain_ms = run_segment_kernel(
+        kind, full, segs, band.lane_need, step, kw)
     gs.launches.update(n0)  # comparison launches are not main-path launches
-    bound_ms, bound_by = lane_bound(planes[3], need, ops_per_sample(
-        variant_of(algo_name, mode, rule), segs=segs,
-        step=r.params.light_ray_step_size,
-        nodes=r.config.beam_quadrature_nodes), 32 * segs[0].shape[0])
-    emit("segshapes", algorithm=algo_name, mode=mode, tier=tier, Cp=planes[0].shape[0],
-         Rc=planes[0].shape[1], segments=int(lights.count[0]),
+    variant = variant_of(algo_name, mode, rule)
+    per_sample = ops_per_sample(variant, segs=segs, step=step,
+                                nodes=r.config.beam_quadrature_nodes)
+    once = call_ops(variant, segs=segs, step=step)
+    table = 32 * segs[0].shape[0]
+    bound_ms, bound_by = lane_bound(planes[3], need, per_sample, table, once)
+    full_bound_ms, full_bound_by = lane_bound(full[3], band.lane_need,
+                                              per_sample, table, once)
+    emit("segshapes", algorithm=algo_name, mode=mode, tier=tier,
+         Cp=planes[0].shape[0], Rc=planes[0].shape[1],
+         segments=int(lights.count[0]),
+         sublights=sublights(segs, step) if kind == "discrete" else None,
          max_rel_err=err, max_abs_err=abs_err, tol=RTOL_SEGMENT, ms=ms,
-         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-    if not err <= RTOL_SEGMENT:
+         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+         full_shape=list(full[0].shape),
+         full_used_samples=int(band.lane_need.clamp(max=full[0].shape[0]).sum()),
+         full_live_samples=int((full[3] != 0).sum()),
+         full_max_rel_err=full_err, full_max_abs_err=full_abs,
+         full_ms=full_ms, full_plain_ms=full_plain_ms,
+         full_bound_ms=full_bound_ms, full_bound_by=full_bound_by)
+    if not max(err, full_err) <= RTOL_SEGMENT:
         raise AssertionError(f"{algo_name} {mode} {tier}: segment kernel vs "
-                             f"plain at live shapes: rel err {err:.3g} > "
+                             f"plain at live shapes: rel err {err:.3g} "
+                             f"(slice), {full_err:.3g} (whole) > "
                              f"{RTOL_SEGMENT:g}")
-    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return dict(max_abs_err=max(abs_err, full_abs), ms=full_ms,
+                plain_ms=full_plain_ms, bound_ms=full_bound_ms,
+                bound_by=full_bound_by, library_ms=None)
 
 
 def slot_variants():
@@ -835,6 +900,7 @@ def phase_slot_shapes(r, algo_name, tier, mode, seg_tier, rule):
             lights.valid[0])
     key, kind = slot_kind(algo_name, mode)
     variant = variant_of(algo_name, mode, rule)
+    once = 0
     if kind == "vpu":
         valid = segs[3].to(torch.int32)
         start, count = int(valid.argmax()), int(valid.sum())
@@ -852,6 +918,7 @@ def phase_slot_shapes(r, algo_name, tier, mode, seg_tier, rule):
         per_sample = ops_per_sample(variant, segs=segs,
                                     step=r.params.light_ray_step_size,
                                     nodes=r.config.beam_quadrature_nodes)
+        once = call_ops(variant, segs=segs, step=r.params.light_ray_step_size)
         table = 32 * segs[0].shape[0]
     n0 = dict(gv.launches)
     err, abs_err, ms, plain_ms = run_slot_kernel(
@@ -870,14 +937,17 @@ def phase_slot_shapes(r, algo_name, tier, mode, seg_tier, rule):
     _, full_view_ms = cuda_timed(full_fn, 3)
     gv.launches.update(n0)  # comparison launches are not main-path launches
     tol = RTOL_PAIRED if kw["paired"] else RTOL_EXACT
-    bound_ms, bound_by = slot_bound(planes[3], per_sample, table)
+    bound_ms, bound_by = slot_bound(planes[3], per_sample, table, once)
+    full_bound_ms, full_bound_by = slot_bound(v.weight, per_sample, table,
+                                              once)
     emit("slotshapes", run=run_label(algo_name, tier, mode, seg_tier, rule),
          kernel=key, R=SLOT_RAYS, C=planes[0].shape[1],
          live_samples=int((planes[3] != 0).sum()),
          lights=int(segs[3].sum()), max_rel_err=err, max_abs_err=abs_err,
          tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
          bound_by=bound_by, full_view_ms=full_view_ms,
-         full_view_live_samples=int((v.weight != 0).sum()))
+         full_view_live_samples=int((v.weight != 0).sum()),
+         full_view_bound_ms=full_bound_ms, full_view_bound_by=full_bound_by)
     if not err <= tol:
         raise AssertionError(f"{key} vs plain at the live shapes: rel err "
                              f"{err:.3g} > {tol:g}")
@@ -1211,7 +1281,8 @@ def phase_many_shapes(r, label: str):
         full, (pos, inten, valid), sphere, r.params.beam_radius)
     gm.launches.update(n0)  # comparison launches are not main-path launches
     bound_ms, bound_by = slot_bound(planes[3], per_sample, 17 * valid.shape[0])
-    full_bound_ms, _ = slot_bound(full[3], per_sample, 17 * valid.shape[0])
+    full_bound_ms, full_bound_by = slot_bound(full[3], per_sample,
+                                              17 * valid.shape[0])
     emit("manyshapes", run=label, shape=list(planes[0].shape),
          live_samples=int((planes[3] != 0).sum()),
          slots=int(valid.shape[0]), valid_slots=n_valid, dropped=int(dropped),
@@ -1221,13 +1292,14 @@ def phase_many_shapes(r, label: str):
          full_live_samples=int((full[3] != 0).sum()),
          full_max_rel_err=full_err, full_max_abs_err=full_abs,
          full_ms=full_ms, full_plain_ms=full_plain_ms,
-         full_bound_ms=full_bound_ms)
+         full_bound_ms=full_bound_ms, full_bound_by=full_bound_by)
     if not max(err, full_err) <= RTOL_EXACT:
         raise AssertionError(
             f"{label}: many kernel vs plain at the live shapes: rel err "
             f"{err:.3g} (slice), {full_err:.3g} (whole) > {RTOL_EXACT:g}")
-    return dict(max_abs_err=max(abs_err, full_abs), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return dict(max_abs_err=max(abs_err, full_abs), ms=full_ms,
+                plain_ms=full_plain_ms, bound_ms=full_bound_ms,
+                bound_by=full_bound_by, library_ms=None)
 
 
 def main() -> int:

@@ -404,3 +404,102 @@ def test_empty_ranges_give_zero(case, kind):
                 *planes, *args[4:], v, sphere_radius=RADIUS,
                 quad_rule="closed", lane_need=nd, paired=True)
         assert out.shape == (RC,) and not out.any()
+
+
+def staged_entries(first, meta, ns, paired):
+    """(segment, s) of each entry of the discrete kernel's sub-light table,
+    placed as its stage_sublights places them: segment k of the range owns
+    entries first[k] .. first[k] + slots_k - 1, slots_k = ns_k (paired:
+    rounded up to a multiple of 4).  Every entry must be placed once."""
+    start, count, total = (int(v) for v in meta)
+    seg = np.full(total, -1)
+    sub = np.full(total, -1)
+    for k in range(start, start + count):
+        slots = (int(ns[k]) + 3) // 4 * 4 if paired else int(ns[k])
+        f = int(first[k])
+        assert (seg[f:f + slots] == -1).all() and f + slots <= total
+        seg[f:f + slots] = k
+        sub[f:f + slots] = np.arange(slots)
+    assert (seg >= 0).all()
+    return seg, sub
+
+
+def prefix_cases():
+    """(pf, pt, inten, valid) tables: the scene's, and 40 segments with
+    many of ns = 0, ns % 4 != 0 and a long one, valid on [3, 33)."""
+    px, py, pz, w, pf, pt, inten, valid, need = scene()
+    rs = np.random.RandomState(9)
+    pf2 = (rs.randn(40, 3) * 5).astype(np.float32)
+    pt2 = pf2 + (rs.randn(40, 3) * rs.choice([0.05, 0.5, 2.0], (40, 1))
+                 ).astype(np.float32)
+    pt2[7] = pf2[7] + np.float32([90.0, 0.0, 0.0])  # 300 sub-lights
+    inten2 = (rs.rand(40) * 30).astype(np.float32)
+    valid2 = (np.arange(40) >= 3) & (np.arange(40) < 33)
+    return [(pf, pt, inten, valid), (pf2, pt2, inten2, valid2)]
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["exact", "paired"])
+def test_sublight_prefix_places_the_plain_versions_table(paired):
+    """The discrete kernel's device-side prefix of ns places every
+    sub-light where the plain version's _sublight_table has it: the same
+    segment and s at each entry (paired: the same overrun slots), and the
+    kernel's position a + (float(s) * step) * u, computed in f32 as the
+    kernel computes it, bit for bit."""
+    for pf, pt, inten, valid in prefix_cases():
+        u, ns, ii, start, count = tseg.discrete_cols(
+            T(pf), T(pt), T(inten), T(valid), STEP)
+        first, meta = tseg.sublight_prefix(ns, start, count, paired)
+        assert first.dtype == meta.dtype == torch.int32
+        seg, sub = staged_entries(first.numpy(), meta.numpy(), ns.numpy(),
+                                  paired)
+        s0, c0 = tseg._light_range(start, count, len(pf))
+        lx, ly, lz, lii, overrun, tseg_rel = tseg._sublight_table(
+            T(pf), u, ns, ii, s0, c0, np.float32(STEP), paired)
+        np.testing.assert_array_equal(seg, tseg_rel.numpy() + s0)
+        np.testing.assert_array_equal(sub >= ns.numpy()[seg], overrun.numpy())
+        sf = sub.astype(np.float32) * np.float32(STEP)
+        un = u.numpy()
+        for c, got in enumerate((lx, ly, lz)):
+            np.testing.assert_array_equal(
+                got.numpy(), pf[seg, c] + sf * un[seg, c])
+        np.testing.assert_array_equal(lii.numpy(), ii.numpy()[seg])
+
+
+def test_sublight_prefix_follows_expand_segments_order():
+    """Where the two meet (a contiguous valid range, no cap reached), the
+    exact tier's table holds the JAX package's expand_segments sub-lights
+    in its order: its valid entries, segment by segment, s ascending."""
+    for pf, pt, inten, valid in prefix_cases():
+        u, ns, ii, start, count = tseg.discrete_cols(
+            T(pf), T(pt), T(inten), T(valid), STEP)
+        first, meta = tseg.sublight_prefix(ns, start, count, False)
+        seg, sub = staged_entries(first.numpy(), meta.numpy(), ns.numpy(),
+                                  False)
+        cap = int(ns.max())
+        jpos, jint, jvalid = map(np.asarray, jlights.expand_segments(
+            pf, pt, inten, valid, STEP, cap))
+        keep = np.nonzero(jvalid)[0]
+        np.testing.assert_array_equal(keep // cap, seg)
+        np.testing.assert_array_equal(keep % cap, sub)
+        sf = sub.astype(np.float32) * np.float32(STEP)
+        np.testing.assert_allclose(
+            jpos[keep], pf[seg] + sf[:, None] * u.numpy()[seg], rtol=1e-6,
+            atol=1e-6)
+        np.testing.assert_allclose(
+            jint[keep] * np.float32(1.0 / jlights.FOUR_PI), ii.numpy()[seg],
+            rtol=1e-6)
+
+
+def test_sublight_prefix_clamps_its_range():
+    """The range clamps as the kernels clamp it (start >= 0, start + count
+    <= L); segments outside it, and an empty range or table, place
+    nothing."""
+    ns = T(np.int32([3, 0, 5, 7, 2, 9]))
+    first, meta = tseg.sublight_prefix(ns, T(4), T(10), True)
+    assert meta.tolist() == [4, 2, 16]
+    assert first.tolist() == [0, 0, 0, 0, 0, 4]
+    first, meta = tseg.sublight_prefix(ns, T(-2), T(2), False)
+    assert meta.tolist() == [0, 2, 3] and first.tolist() == [0, 3, 3, 3, 3, 3]
+    for n, c in ((ns, 0), (torch.zeros(0, dtype=torch.int32), 5)):
+        first, meta = tseg.sublight_prefix(n, T(0), T(c), False)
+        assert meta.tolist()[2] == 0 and not first.any()

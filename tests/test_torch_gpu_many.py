@@ -91,3 +91,47 @@ def test_cuda_many_kernel_takes_flat_and_lane_planes():
                           sphere=False)
     torch.cuda.synchronize()
     assert torch.equal(a.reshape(-1), b) and torch.equal(a, c.T)
+
+
+def slot_view(R=4096, C=144, seed=4):
+    """Slot planes as a ViewCache holds them: most rays dead (a zero row),
+    a live ray's samples on a prefix of its slots with zero-weight gaps, so
+    whole spans of the flat planes are dead and others partly live."""
+    rs = np.random.RandomState(seed)
+    planes = [(rs.randn(R, C) * 8 + 15).astype(np.float32) for _ in range(3)]
+    w = (rs.rand(R, C) * 0.01).astype(np.float32)
+    used = np.where(rs.rand(R) < 0.25, rs.randint(1, C + 1, R), 0)
+    w[np.arange(C)[None, :] >= used[:, None]] = 0.0
+    w[rs.rand(R, C) < 0.2] = 0.0
+    w[R // 3:R // 2] = 0.0  # a long all-dead stretch
+    return planes + [w]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,n_valid", [(3000, 1500), (6000, 5000)],
+                         ids=["one_stage", "chunks"])
+@pytest.mark.parametrize("sphere", [False, True], ids=["point", "sphere"])
+def test_cuda_many_kernel_takes_live_samples_only(sphere, L, n_valid):
+    """Slot-view planes (dead rays, partly live rows, an all-dead stretch)
+    against the plain version at rtol 2e-5, with valid slots that fit one
+    stage of 2,048 and more than fit (re-staged per batch); every
+    zero-weight sample is written 0, every live one is > 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    rs = np.random.RandomState(L)
+    lpos = (rs.randn(L, 3) * 8 + 15).astype(np.float32)
+    lint = (rs.rand(L) * 20).astype(np.float32)
+    valid = np.zeros(L, bool)
+    valid[rs.choice(L, n_valid, replace=False)] = True
+    cuda = lambda a: torch.as_tensor(a).cuda()
+    planes = [cuda(a) for a in slot_view()]
+    lights = [cuda(a) for a in (lpos, lint, valid)]
+    got = tmany.gather_many(*planes, *lights, sphere=sphere, radius=RADIUS)
+    ref = tmany.gather_many_reference(*planes, *lights, sphere=sphere,
+                                      radius=RADIUS)
+    torch.cuda.synchronize()
+    live = planes[3] != 0
+    assert torch.isfinite(got).all() and not got[~live].any()
+    assert (got[live] > 0).all()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=2e-5, atol=0)

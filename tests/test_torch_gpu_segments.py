@@ -115,3 +115,77 @@ def test_cuda_kernels_take_more_than_one_chunk():
             *args, lane_need=need, **kw)
         np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                    rtol=2e-5, atol=0)
+
+
+def staging_inputs(lengths, seed=8):
+    """Planes of every lane need 0..CP (each remainder modulo the samples a
+    thread takes), a third of the weights zero inside the needs, and
+    segments of the given lengths along x, valid on [2, len - 1)."""
+    rs = np.random.RandomState(seed)
+    need = np.sort(np.arange(RC) % (CP + 1))[::-1].astype(np.int32)
+    planes = [(rs.randn(CP, RC) * 8 + 15).astype(np.float32)
+              for _ in range(3)]
+    w = (rs.rand(CP, RC) * 0.01).astype(np.float32)
+    w[rs.rand(CP, RC) < 0.3] = 0.0
+    w[np.arange(CP)[:, None] >= need[None, :]] = 0.0
+    L = len(lengths)
+    pf = (rs.randn(L, 3) * 8 + 15).astype(np.float32)
+    pt = pf + np.float32(lengths)[:, None] * np.float32([1.0, 0.0, 0.0])
+    inten = (rs.rand(L) * 30).astype(np.float32)
+    valid = (np.arange(L) >= 2) & (np.arange(L) < L - 1)
+    cuda = lambda a: torch.as_tensor(a).cuda()
+    return [cuda(a) for a in planes + [w, pf, pt, inten, valid]], cuda(need)
+
+
+DISCRETE = [dict(sphere_radius=r, paired=p) for r in (None, RADIUS)
+            for p in (False, True)]
+# Sub-light counts at STEP 0.3: ns = 0 (0.1, 0.25), 1-3 (paired overruns),
+# 5, and long segments; the first table fits one stage of 2,048 entries,
+# the second (2 x 1,000 + the rest) does not.
+ONE_STAGE = [0.1, 0.35, 150.0, 0.25, 0.7, 1.6, 0.1, 60.0, 0.95, 2.0]
+TWO_STAGES = [0.1, 0.35, 300.0, 0.25, 0.7, 1.6, 300.0, 0.1, 0.95, 60.0,
+              2.0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lengths", [ONE_STAGE, TWO_STAGES],
+                         ids=["one_stage", "two_stages"])
+@pytest.mark.parametrize("kw", DISCRETE, ids=["ray_exact", "ray_paired",
+                                              "beam_exact", "beam_paired"])
+def test_cuda_discrete_kernel_staged_table(kw, lengths):
+    """The discrete kernel's staged sub-light table, each template against
+    its plain version at rtol 2e-5: one stage and more than one (a
+    segment's sub-lights split between two stages), segments of ns = 0
+    and paired overruns between long ones, every lane need modulo the
+    samples a thread takes, zero-weight rows inside the needs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    args, need = staging_inputs(lengths)
+    _, ns, *_ = tseg.discrete_cols(*args[4:], STEP)
+    assert (int(ns.sum()) > 2048) == (lengths is TWO_STAGES)
+    got = tseg.gather_segments_discrete_lanes(*args, STEP, lane_need=need,
+                                              **kw)
+    ref = tseg.gather_segments_discrete_lanes_reference(
+        *args, STEP, lane_need=need, **kw)
+    torch.cuda.synchronize()
+    lit = (args[3] != 0).any(0)  # lanes with a nonzero weight
+    assert torch.isfinite(got).all()
+    assert not got[~lit].any() and (got[lit] > 0).all()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=2e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", DISCRETE, ids=["ray_exact", "ray_paired",
+                                              "beam_exact", "beam_paired"])
+def test_cuda_discrete_kernel_without_sublights(kw):
+    """Valid segments all shorter than a step (no sub-light), and no valid
+    segment: every lane is 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    args, need = staging_inputs([0.1, 0.2, 0.25, 0.05])
+    for valid in (args[7], torch.zeros_like(args[7])):
+        got = tseg.gather_segments_discrete_lanes(
+            *args[:7], valid, STEP, lane_need=need, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == (RC,) and not got.any()

@@ -86,7 +86,7 @@ def _check(px, py, pz, w, l_pos, l_int, l_valid):
                              f"got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if px.numel() >= 2**31 * 256 or 3 * L >= 2**31:
+    if px.numel() >= 2**31 or 3 * L >= 2**31:
         raise ValueError("gather_many: a dimension exceeds the kernel's range")
     return L
 
@@ -104,8 +104,8 @@ def _lib():
     lib = library("gather_many")
     if not getattr(lib, "_vr_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.vr_gather_many.argtypes = [p] * 8 + [i, ctypes.c_longlong,
-                                                 ctypes.c_float, i, p, p]
+        lib.vr_gather_many.argtypes = [p] * 8 + [i, i, ctypes.c_float, i,
+                                                 p, p, p]
         lib.vr_gather_many.restype = i
         lib.vr_many_error_string.argtypes = [i]
         lib.vr_many_error_string.restype = ctypes.c_char_p
@@ -129,6 +129,7 @@ def gather_many(px, py, pz, w, l_pos, l_int, l_valid, *, sphere: bool,
         return out
     li = l_int * _INV_FOUR_PI
     active = tile_flags(l_valid)
+    next_span = torch.zeros(1, dtype=torch.int32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -136,7 +137,7 @@ def gather_many(px, py, pz, w, l_pos, l_int, l_valid, *, sphere: bool,
             px.data_ptr(), py.data_ptr(), pz.data_ptr(), w.data_ptr(),
             l_pos.data_ptr(), li.data_ptr(), l_valid.data_ptr(),
             active.data_ptr(), L, px.numel(), f32(radius), int(sphere),
-            out.data_ptr(), stream,
+            next_span.data_ptr(), out.data_ptr(), stream,
         )
     if err != 0:
         msg = lib.vr_many_error_string(err).decode()

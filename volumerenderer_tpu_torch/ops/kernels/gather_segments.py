@@ -73,6 +73,31 @@ def discrete_cols(pos_from, pos_to, intensity, valid, light_ray_step_size):
     return u, ns, torch.where(live, ii, 0.0), start, count
 
 
+def sublight_prefix(ns, start, count, paired: bool):
+    """(first, meta) of the discrete kernel's sub-light table, computed on
+    ns's device without a host sync.  Segment k of the clamped range
+    [start, start+count) owns table entries [first[k], first[k] + slots_k)
+    with slots_k = ns_k (exact) or ns_k rounded up to a multiple of 4
+    (paired): the order of ``_sublight_table``.  first: (L,) i32, an
+    exclusive prefix sum (0-slot segments outside the range); meta:
+    int32[3] = (start, count, total entries)."""
+    L = ns.shape[0]
+    dev = ns.device
+    start = torch.clamp(torch.as_tensor(start, device=dev).reshape(()),
+                        min=0).to(torch.int32)
+    count = torch.clamp(torch.minimum(
+        torch.as_tensor(count, device=dev).reshape(()).to(torch.int32),
+        L - start), min=0)
+    k = torch.arange(L, device=dev, dtype=torch.int32)
+    slots = torch.where((k >= start) & (k < start + count), ns, 0).to(
+        torch.int32)
+    if paired:
+        slots = (slots + 3) // 4 * 4
+    ends = torch.cumsum(slots, 0, dtype=torch.int32)
+    return ends - slots, torch.stack([start, count, slots.sum(
+        dtype=torch.int32)])
+
+
 def analytic_cols(pos_from, pos_to, intensity, valid):
     """(u, length, ii, start, count) with ii = I / (4 pi L)."""
     u, length, safe, start, count = segment_cols(pos_from, pos_to,
@@ -290,7 +315,7 @@ def _lib():
     if not getattr(lib, "_vr_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.vr_gather_segments_discrete.argtypes = (
-            [p] * 7 + [i, i, i, f, f, i, i, p, p])
+            [p] * 8 + [i, i, i, f, f, i, i, p, p, p, p])
         lib.vr_gather_segments_analytic.argtypes = (
             [p] * 8 + [i, i, i, i, f, i, i, p, p])
         lib.vr_gather_segments_discrete.restype = i
@@ -354,6 +379,8 @@ def gather_segments_discrete_lanes(
             lane_need=lane_need, paired=paired)
     if px.device.type != "cuda":
         raise ValueError(f"gather_segments: unsupported device {px.device}")
+    if Cp * Rc >= 2**31:
+        raise ValueError("gather_segments_discrete: Cp * Rc exceeds int32")
     dev = px.device
     out = torch.empty(Rc, dtype=torch.float32, device=dev)
     if Rc == 0:
@@ -361,16 +388,19 @@ def gather_segments_discrete_lanes(
     u, ns, ii, start, count = discrete_cols(pos_from, pos_to, intensity,
                                             valid, light_ray_step_size)
     table = _table(pos_from, u, ns.view(torch.float32), ii)
-    meta = _meta(start, count, dev)
+    first, meta = sublight_prefix(ns, start, count, paired)
+    next_span = torch.zeros(1, dtype=torch.int32, device=dev)
+    terms = torch.empty((Cp, Rc), dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.vr_gather_segments_discrete(
             *_launch_args(px, py, pz, wm, lane_need), table.data_ptr(),
-            meta.data_ptr(), L, Cp, Rc, f32(light_ray_step_size),
+            first.data_ptr(), meta.data_ptr(), L, Cp, Rc,
+            f32(light_ray_step_size),
             f32(0.0 if sphere_radius is None else sphere_radius),
-            int(sphere_radius is not None), int(paired), out.data_ptr(),
-            stream)
+            int(sphere_radius is not None), int(paired), next_span.data_ptr(),
+            terms.data_ptr(), out.data_ptr(), stream)
     _raise_on(lib, err, "gather_segments_discrete")
     launches["discrete"] += 1
     return out
