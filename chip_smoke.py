@@ -103,7 +103,10 @@ ROOT = Path(__file__).resolve().parent
 PKG = ROOT / "volumerenderer_tpu_torch"
 
 # Tolerances of the kernel against its plain version, per lane, relative.
-RTOL_EXACT = 2e-5  # FMA-free term order; only the summation order differs
+# The plain versions sum in the kernels' order; the rounding of the terms
+# differs where a kernel fuses a multiply-add or takes an approximate
+# reciprocal (the staged sums of csrc/gather_terms.cuh).
+RTOL_EXACT = 2e-5
 RTOL_PAIRED = 3e-5  # paired tier against the exact plain version
 TPU_CHECKSUM = 57344.9  # accum checksum of the bench config, paired tier, TPU run
 BENCH_W, BENCH_H = 1920, 1080
@@ -111,7 +114,7 @@ PLAIN_ELEMS = 1 << 26  # (Cp, lanes, L) elements per chunk of the plain version
 SYNTH_CP, SYNTH_RC = 144, 524288  # synthetic planes: the main path's cap, one band
 SEG_RC = 65536  # lanes of the segment kernels' synthetic and live comparisons
 # Segment kernels against their plain versions (exact against exact, paired
-# against paired: the same terms, only the summation order differs).
+# against paired: the same terms in the same order).
 RTOL_SEGMENT = 2e-5
 RAYBEAM_RUNS = (  # (algorithm, segment_mode, segment_eval, quadrature rule)
     ("RAY", "discrete", "exact", "midpoint"),
@@ -459,18 +462,16 @@ def phase_segment_kernel():
 
     dev = torch.device(DEV)
     planes, segs, need = segment_case(SYNTH_CP, SEG_RC, 7, dev)
-    # A second table for the discrete kernel: 11 valid segments of 210
-    # sub-lights, more than one stage of its sub-light table holds, a
-    # segment split between two stages.  They lie beside the samples' cloud
-    # (40 units along x), so that no sample sits on a sub-light: a long sum
-    # of near-singular terms differs from the plain version's pairwise sum
-    # by its order alone.
+    # A second table for the discrete kernel: 11 valid segments of 318
+    # sub-lights (3,498), more than one stage of its sub-light table holds,
+    # a segment split between two stages.  They run through the samples'
+    # cloud, so that samples sit near sub-lights and the long sums hold
+    # near-singular terms.
     gen = torch.Generator(device=dev).manual_seed(8)
-    offset = torch.tensor([40.0, 0.0, 0.0], device=dev)
-    pos_from = torch.randn((12, 3), generator=gen, device=dev) * 8 + 15 + offset
+    pos_from = torch.randn((12, 3), generator=gen, device=dev) * 8 + 15
     u = torch.randn((12, 3), generator=gen, device=dev)
-    pos_to = pos_from + 63.05 * u / torch.linalg.vector_norm(u, dim=1,
-                                                              keepdim=True)
+    pos_to = pos_from + 95.5 * u / torch.linalg.vector_norm(u, dim=1,
+                                                             keepdim=True)
     long_segs = (pos_from, pos_to, torch.rand(12, generator=gen, device=dev)
                  * 30, torch.arange(12, device=dev) >= 1)
     runs = [(label, kind, kw, segs) for label, kind, kw in segment_variants()]
@@ -1252,6 +1253,8 @@ def phase_many_shapes(r, label: str):
     band, or SLOT_RAYS rays of a ViewCache around the image centre), then
     on the whole widest band or the whole ViewCache, as one frame's launch
     takes it."""
+    import torch
+
     import volumerenderer_tpu_torch as vt
     from volumerenderer_tpu_torch.ops.kernels import gather_many as gm
     from volumerenderer_tpu_torch.render import color, photon
@@ -1279,6 +1282,13 @@ def phase_many_shapes(r, label: str):
         planes, (pos, inten, valid), sphere, r.params.beam_radius, reps=5)
     full_err, full_abs, full_ms, full_plain_ms = run_many_kernel(
         full, (pos, inten, valid), sphere, r.params.beam_radius)
+    # The same launch with no valid light: the live-sample scan alone (span
+    # claims, the queue, the zeros of dead samples), what a frame's kernel
+    # costs beside its terms.
+    scan = lambda: gm.gather_many(*full, pos, inten, torch.zeros_like(valid),
+                                  sphere=sphere, radius=r.params.beam_radius)
+    scan()
+    _, full_scan_ms = cuda_timed(scan, 3)
     gm.launches.update(n0)  # comparison launches are not main-path launches
     bound_ms, bound_by = slot_bound(planes[3], per_sample, 17 * valid.shape[0])
     full_bound_ms, full_bound_by = slot_bound(full[3], per_sample,
@@ -1292,7 +1302,8 @@ def phase_many_shapes(r, label: str):
          full_live_samples=int((full[3] != 0).sum()),
          full_max_rel_err=full_err, full_max_abs_err=full_abs,
          full_ms=full_ms, full_plain_ms=full_plain_ms,
-         full_bound_ms=full_bound_ms, full_bound_by=full_bound_by)
+         full_bound_ms=full_bound_ms, full_bound_by=full_bound_by,
+         full_scan_ms=full_scan_ms)
     if not max(err, full_err) <= RTOL_EXACT:
         raise AssertionError(
             f"{label}: many kernel vs plain at the live shapes: rel err "

@@ -503,3 +503,52 @@ def test_sublight_prefix_clamps_its_range():
     for n, c in ((ns, 0), (torch.zeros(0, dtype=torch.int32), 5)):
         first, meta = tseg.sublight_prefix(n, T(0), T(c), False)
         assert meta.tolist()[2] == 0 and not first.any()
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["exact", "paired"])
+@pytest.mark.parametrize("radius", [None, RADIUS], ids=["ray", "beam"])
+def test_discrete_plain_sums_in_table_order(radius, paired):
+    """The plain discrete version adds a sample's sub-lights in table order
+    (paired: its groups in order, each segment's part times the segment's
+    ii where the segment ends) and a lane's samples in row order, as the
+    kernel does: bit for bit against those sums written out in numpy, one
+    term at a time, on the 40-segment table."""
+    px, py, pz, w, _, _, _, _, need = scene()
+    pf, pt, inten, valid = prefix_cases()[1]
+    rad = None if radius is None else np.float32(radius)
+    u, ns, ii, start, count = tseg.discrete_cols(
+        T(pf), T(pt), T(inten), T(valid), STEP)
+    s0, c0 = tseg._light_range(start, count, len(pf))
+    lx, ly, lz, lii, overrun, seg = tseg._sublight_table(
+        T(pf), u, ns, ii, s0, c0, np.float32(STEP), paired)
+    use = np.arange(CP)[:, None] < need[None, :]
+    x, y, z = (T(p[use])[:, None] for p in (px, py, pz))
+    d2e, bad = (t.numpy() for t in tseg._d2e_bad(x, y, z, lx, ly, lz, rad))
+    acc = np.zeros(d2e.shape[0], np.float32)
+    if paired:
+        q = np.where(bad | overrun.numpy(), np.float32(tseg.PAIR_BIG), d2e)
+        segs, iis = seg.numpy(), ii.numpy()
+        part = np.zeros_like(acc)
+        for g in range(q.shape[1] // 4):
+            q1, q2, q3, q4 = (q[:, 4 * g + i] for i in range(4))
+            q12, q34 = q1 * q2, q3 * q4
+            part = part + ((q1 + q2) * q34 + (q3 + q4) * q12) / (q12 * q34)
+            if 4 * g + 4 == q.shape[1] or segs[4 * g + 4] != segs[4 * g]:
+                acc = acc + iis[s0 + segs[4 * g]] * part
+                part = np.zeros_like(acc)
+    else:
+        lis = lii.numpy()
+        for t in range(d2e.shape[1]):
+            term = lis[t] / np.maximum(d2e[:, t], np.float32(tseg.GUARD))
+            acc = acc + np.where(bad[:, t], np.float32(0.0), term)
+    full = np.zeros((CP, RC), np.float32)
+    full[use] = acc
+    terms = np.where(use, w * full, np.float32(0.0))
+    want = np.zeros(RC, np.float32)
+    for j in range(CP):
+        want = want + terms[j]
+    got = tseg.gather_segments_discrete_lanes_reference(
+        *map(T, (px, py, pz, w, pf, pt, inten, valid)), STEP,
+        sphere_radius=radius, lane_need=T(need), paired=paired)
+    assert d2e.shape[1] > 300 and np.count_nonzero(want) > RC // 2
+    np.testing.assert_array_equal(got.numpy(), want)

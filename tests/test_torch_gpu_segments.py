@@ -60,7 +60,8 @@ def inputs(seed=5):
 @pytest.mark.parametrize("kind,kw", VARIANTS)
 def test_cuda_kernel_matches_plain_version(kind, kw):
     """Each kernel against its plain version on the card, same tier: rtol
-    2e-5 (the same terms; only the summation order differs)."""
+    2e-5 (the same terms in the same order; the discrete kernel's FMA and
+    approximate reciprocal round them differently)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
     arrays, need = inputs()

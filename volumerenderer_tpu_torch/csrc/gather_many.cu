@@ -134,8 +134,10 @@ int launch_many(const float* px, const float* py, const float* pz,
                 const float* w, const float* lpos, const float* li,
                 const unsigned char* valid, const int* active, int L, int N,
                 float radius, int* next_span, float* out, cudaStream_t s) {
+  static ResidentBlocks resident;
   unsigned blocks = 0;
-  const int err = persistent_blocks(many_kernel<kSphere>, N, &blocks);
+  const int err =
+      persistent_blocks(many_kernel<kSphere>, resident, N, &blocks);
   if (err != 0) return err;
   many_kernel<kSphere><<<blocks, kThreads, 0, s>>>(
       px, py, pz, w, lpos, li, valid, active, L, N, radius, next_span, out);

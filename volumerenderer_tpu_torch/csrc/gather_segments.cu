@@ -53,8 +53,8 @@
 //
 // The per-(sample, segment) terms live in gather_terms.cuh, shared with
 // the slot kernels of gather_vpu.cu; the header states their rounding rules
-// (reference term order, no FMA contraction unless a lever says so, IEEE
-// divides and roots).
+// (reference term order, no FMA contraction, IEEE divides and roots,
+// apart from the staged sums' two stated levers).
 
 #include "gather_terms.cuh"
 
@@ -253,9 +253,10 @@ int launch_discrete(const float* px, const float* py, const float* pz,
                     float step, float radius, int* next_span, float* terms,
                     float* out, cudaStream_t s) {
   const int N = Cp * Rc;
+  static ResidentBlocks resident;
   unsigned blocks = 0;
-  const int err =
-      persistent_blocks(discrete_kernel<kSphere, kPaired>, N, &blocks);
+  const int err = persistent_blocks(discrete_kernel<kSphere, kPaired>,
+                                    resident, N, &blocks);
   if (err != 0) return err;
   if (N > 0) {
     discrete_kernel<kSphere, kPaired><<<blocks, kThreads, 0, s>>>(

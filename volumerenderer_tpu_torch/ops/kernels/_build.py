@@ -5,9 +5,7 @@ use it is compiled with ``nvcc`` for ``sm_90a`` into
 ``<checkout>/build/kernels/`` under a file name that carries a hash of the
 source, the flags and the compiler, then loaded with ``ctypes``.  ``build``
 starts one nvcc per missing source, all at once.  A missing compiler or a
-failed build raises.  ``defines`` (``-D`` flags, such as the staged sums'
-VR_SAMPLES, VR_FMA and VR_FAST_RCP) and another ``csrc`` directory build
-variants beside the package's own libraries, for measurement scripts.
+failed build raises.
 """
 
 from __future__ import annotations
@@ -25,7 +23,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # -fmad=false: no multiply-add pair is contracted into an FMA, so the
 # exact tier rounds term for term like the reference.  No fast math:
 # divides and square roots stay IEEE.  (The staged sums of
-# csrc/gather_terms.cuh fuse and approximate where their levers say so.)
+# csrc/gather_terms.cuh take an explicit FMA and an approximate reciprocal,
+# as that header states.)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
@@ -49,34 +48,30 @@ def nvcc_path() -> str:
     )
 
 
-def _so_path(name: str, nvcc: str, defines=(), csrc: Path = CSRC) -> Path:
-    src = csrc / f"{name}.cu"
+def _so_path(name: str, nvcc: str) -> Path:
+    src = CSRC / f"{name}.cu"
     h = hashlib.sha256()
-    for p in [src, *sorted(csrc.glob("*.cuh"))]:
+    for p in [src, *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.read_bytes())
-    h.update(" ".join([*NVCC_FLAGS, *defines]).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     h.update(nvcc.encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names, defines=(), csrc: Path = CSRC) -> None:
-    """Compile the missing ``<csrc>/<name>.cu`` libraries, one nvcc process
-    each, all started together; raises if any fails.  ``names`` may also
-    hold (name, defines, csrc) triples."""
+def build(names) -> None:
+    """Compile the missing ``csrc/<name>.cu`` libraries, one nvcc process
+    each, all started together; raises if any fails."""
     nvcc = nvcc_path()
     jobs = []
-    for job in names:
-        name, defs, src_dir = (job if isinstance(job, tuple)
-                               else (job, defines, csrc))
-        so = _so_path(name, nvcc, defs, src_dir)
+    for name in names:
+        so = _so_path(name, nvcc)
         if so.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        src = src_dir / f"{name}.cu"
+        src = CSRC / f"{name}.cu"
         proc = subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, *defs, "-I", str(src_dir), "-o", str(tmp),
-             str(src)],
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         jobs.append((src, so, tmp, proc))
@@ -94,18 +89,14 @@ def build(names, defines=(), csrc: Path = CSRC) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def library(name: str, defines=(), csrc: Path = CSRC) -> ctypes.CDLL:
-    """Build (once per source hash) and load ``<csrc>/<name>.cu``.  The
-    package's own library (no defines, this package's csrc) is the one the
-    wrappers take; others are loaded beside it."""
-    own = not defines and csrc == CSRC
-    if own and name in _loaded:
+def library(name: str) -> ctypes.CDLL:
+    """Build (once per source hash) and load ``csrc/<name>.cu``."""
+    if name in _loaded:
         return _loaded[name]
-    build([(name, tuple(defines), csrc)])
-    so = _so_path(name, nvcc_path(), tuple(defines), csrc)
+    build([name])
+    so = _so_path(name, nvcc_path())
     log = so.with_suffix(".log")
+    build_logs[name] = log.read_text() if log.exists() else ""
     lib = ctypes.CDLL(str(so))
-    if own:
-        build_logs[name] = log.read_text() if log.exists() else ""
-        _loaded[name] = lib
+    _loaded[name] = lib
     return lib

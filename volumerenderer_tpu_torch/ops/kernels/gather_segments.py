@@ -119,10 +119,15 @@ def _active_samples(px, py, pz, lane_need):
 
 
 def _lane_sums(use, wm, rad):
-    """sum_j w[j] * rad[j] per lane, rad given on the used samples."""
+    """sum_j w[j] * rad[j] per lane, rad given on the used samples, added in
+    row order (the kernels' running sum over a lane's samples)."""
     full = torch.zeros_like(wm)
     full[use] = rad
-    return torch.where(use, wm * full, 0.0).sum(dim=0)
+    terms = torch.where(use, wm * full, 0.0)
+    out = wm.new_zeros(wm.shape[1])
+    for j in range(terms.shape[0]):
+        out = out + terms[j]
+    return out
 
 
 def _chunks(n: int, per: int, max_elems: int):
@@ -170,8 +175,12 @@ def gather_segments_discrete_lanes_reference(
         px, py, pz, wm, pos_from, pos_to, intensity, valid,
         light_ray_step_size, *, sphere_radius=None, lane_need=None,
         paired: bool = False, max_elems: int = 1 << 24) -> torch.Tensor:
-    """Plain PyTorch version of the discrete kernel, chunked so that the
-    (samples, sub-lights) temporaries stay under ``max_elems`` elements."""
+    """Plain PyTorch version of the discrete kernel, in its summation order:
+    one running sum per sample over the sub-light table in table order (the
+    paired tier: over its groups, each segment's part scaled by its ii when
+    the segment ends), then each lane's samples in row order.  Chunked over
+    sub-lights so that the (samples, sub-lights) temporaries stay under
+    ``max_elems`` elements."""
     if lane_need is None:
         lane_need = lane_need_of(wm)
     L = pos_from.shape[0]
@@ -182,25 +191,38 @@ def gather_segments_discrete_lanes_reference(
     lx, ly, lz, lii, overrun, seg = _sublight_table(
         pos_from, u, ns, ii, start, count, f32(light_ray_step_size), paired)
     use, x, y, z = _active_samples(px, py, pz, lane_need)
-    rad = torch.zeros_like(x)
+    acc = torch.zeros_like(x)
+    part = torch.zeros_like(x)
     S = lx.shape[0]
-    for a, b in _chunks(x.shape[0], S, max_elems):
-        xa, ya, za = x[a:b, None], y[a:b, None], z[a:b, None]
-        d2e, bad = _d2e_bad(xa, ya, za, lx, ly, lz, radius)
+    if paired:  # per group: its segment's ii, and whether it ends the segment
+        gseg = seg[::4]
+        gii = ii[start + gseg]
+        ends = torch.ones_like(gseg, dtype=torch.bool)
+        ends[:-1] = gseg[1:] != gseg[:-1]
+        ends = ends.tolist()  # host read: the plain version walks the groups
+    per = max(4, max_elems // max(x.shape[0], 1) // 4 * 4)
+    x, y, z = x[:, None], y[:, None], z[:, None]
+    for a in range(0, S if x.shape[0] else 0, per):
+        b = min(a + per, S)
+        d2e, bad = _d2e_bad(x, y, z, lx[a:b], ly[a:b], lz[a:b], radius)
         if paired:
-            q = torch.where(bad | overrun, PAIR_BIG, d2e).unflatten(-1, (-1, 4))
+            q = torch.where(bad | overrun[a:b], PAIR_BIG, d2e).unflatten(
+                -1, (-1, 4))
             q12 = q[..., 0] * q[..., 1]
             q34 = q[..., 2] * q[..., 3]
             s12 = q[..., 0] + q[..., 1]
             s34 = q[..., 2] + q[..., 3]
             grp = (s12 * q34 + s34 * q12) / (q12 * q34)
-            part = grp.new_zeros((b - a, count)).index_add_(
-                1, seg[::4], grp)
-            rad[a:b] = (ii[start:start + count] * part).sum(dim=-1)
+            for g in range(grp.shape[1]):
+                part = part + grp[:, g]
+                if ends[a // 4 + g]:
+                    acc = acc + gii[a // 4 + g] * part
+                    part = torch.zeros_like(part)
         else:
-            term = lii / torch.clamp(d2e, min=GUARD)
-            rad[a:b] = torch.where(bad, 0.0, term).sum(dim=-1)
-    return _lane_sums(use, wm, rad)
+            term = torch.where(bad, 0.0, lii[a:b] / torch.clamp(d2e, min=GUARD))
+            for t in range(term.shape[1]):
+                acc = acc + term[:, t]
+    return _lane_sums(use, wm, acc)
 
 
 def _analytic_terms(x, y, z, cols, start, count, radius, nodes, rule,
