@@ -34,20 +34,26 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                of each segment kernel per frame;
   9. segshapes each segment kernel against its plain version on one
                frame's segments, on 65,536 lanes of the live widest band
-               and on the whole widest band (as a frame launches it);
+               and on the whole widest band (as a frame launches it; the
+               paired discrete kernel also against the exact plain
+               version, at RTOL_PAIRED);
  10. slotkernel the 16 slot-kernel templates (csrc/gather_vpu.cu) against
                their plain versions at synthetic (R, C) = (144, 65536) slot
                planes, about half of them at zero weight, with the segment
                edge cases above and a light table of two chunks;
  11. uncached  the bench config with compact_view=False (the slots
-               ViewCache) for POINT exact and paired, RAY discrete exact,
-               RAY analytic paired and BEAM analytic closed paired:
-               step(8) warm-up, step(8) timed, slot-kernel launches per
-               frame, peak memory, the image against a cached session at
-               the same frame (rtol 1e-5, atol 1e-7); and one uncached
-               step (march + shade) per frame for POINT exact;
- 12. slotshapes each run's slot kernel against its plain version on 65,536
-               rays of the live 1080p ViewCache and one frame's lights;
+               ViewCache) for POINT exact and paired, RAY discrete exact
+               and paired, RAY analytic paired, BEAM discrete exact and
+               BEAM analytic closed paired: step(8) warm-up, step(8)
+               timed, slot-kernel launches per frame, peak memory, the
+               image against a cached session at the same frame (rtol
+               1e-5, atol 1e-7); and one uncached step (march + shade) per
+               frame for POINT exact;
+ 12. slotshapes each run's slot kernel against its plain version on one
+               frame's lights, on 65,536 rays of the live 1080p ViewCache
+               and then on the whole ViewCache, as a frame launches it
+               (the paired discrete kernel also against the exact plain
+               version, at RTOL_PAIRED);
  13. drag      the interactive viewer's setup at the bench config (RAY,
                motion_mode="coarse", first_frame_uncached, settle_chunks
                4): the first frame (warm), coarse drag frames, the settle
@@ -84,9 +90,9 @@ Phases, each printed as one JSON line; any failure exits nonzero:
 The lines before the last are the card's name and power limit as
 nvidia-smi gives them and a JSON object of the kernels (each with its
 bound: the larger of its f32 operations at 67 TFLOP/s and its bytes at
-3.35 TB/s, counted for this run's inputs; the lane segment kernels and the
-many-light kernel at the whole shape a frame launches, the others at
-their live slice); the last line is
+3.35 TB/s, counted for this run's inputs; the point lane kernel at the
+widest band, the others at the whole shape a frame launches: the widest
+band or the whole ViewCache); the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
 repository, it exits nonzero and prints no result.
 """
@@ -145,7 +151,9 @@ UNCACHED_RUNS = (  # (algorithm, gather_eval, segment_mode, segment_eval, rule)
     ("POINT", "exact", "discrete", "exact", "midpoint"),
     ("POINT", "paired", "discrete", "exact", "midpoint"),
     ("RAY", "exact", "discrete", "exact", "midpoint"),
+    ("RAY", "exact", "discrete", "paired", "midpoint"),
     ("RAY", "exact", "analytic", "paired", "midpoint"),
+    ("BEAM", "exact", "discrete", "exact", "midpoint"),
     ("BEAM", "exact", "analytic", "paired", "closed"),
 )
 # The card's peaks (H100 SXM data sheet, at a 700 W limit): f32 outside
@@ -436,7 +444,7 @@ def segment_variants():
 
 def run_segment_kernel(kind, planes, segs, need, step, kw, reps=3):
     """The kernel and its plain version on the same inputs: returns
-    (max rel err, max abs err, kernel ms, plain ms)."""
+    (max rel err, max abs err, kernel ms, plain ms, kernel output)."""
     from volumerenderer_tpu_torch.ops.kernels import gather_segments as gs
 
     if kind == "discrete":
@@ -452,7 +460,7 @@ def run_segment_kernel(kind, planes, segs, need, step, kw, reps=3):
     fn()  # first launch outside the timing
     got, ms = cuda_timed(fn, reps)
     ref, plain_ms = cuda_timed(ref_fn)
-    return rel_err(got, ref), float((got - ref).abs().max()), ms, plain_ms
+    return rel_err(got, ref), float((got - ref).abs().max()), ms, plain_ms, got
 
 
 def phase_segment_kernel():
@@ -479,7 +487,7 @@ def phase_segment_kernel():
              for label, kind, kw in segment_variants() if kind == "discrete"]
     n0 = dict(gs.launches)
     for label, kind, kw, table in runs:
-        err, abs_err, ms, plain_ms = run_segment_kernel(
+        err, abs_err, ms, plain_ms, _ = run_segment_kernel(
             kind, planes, table, need, 0.3, kw)
         emit("segkernel", variant=label, Cp=SYNTH_CP, Rc=SEG_RC,
              segments=int(table[3].sum()),
@@ -682,11 +690,17 @@ def phase_segment_shapes(r, algo_name: str, mode: str, tier: str, rule: str):
         kw.update(quad_rule=rule, quad_nodes=r.config.beam_quadrature_nodes)
     step = r.params.light_ray_step_size
     n0 = dict(gs.launches)
-    err, abs_err, ms, plain_ms = run_segment_kernel(
+    err, abs_err, ms, plain_ms, _ = run_segment_kernel(
         kind, planes, segs, need, step, kw, reps=5)
-    full_err, full_abs, full_ms, full_plain_ms = run_segment_kernel(
+    full_err, full_abs, full_ms, full_plain_ms, got = run_segment_kernel(
         kind, full, segs, band.lane_need, step, kw)
     gs.launches.update(n0)  # comparison launches are not main-path launches
+    vs_exact = None
+    if kind == "discrete" and kw["paired"]:  # the paired tier against exact
+        vs_exact = rel_err(got, gs.gather_segments_discrete_lanes_reference(
+            *full, *segs, step, lane_need=band.lane_need,
+            sphere_radius=kw["sphere_radius"], max_elems=PLAIN_ELEMS))
+    del got
     variant = variant_of(algo_name, mode, rule)
     per_sample = ops_per_sample(variant, segs=segs, step=step,
                                 nodes=r.config.beam_quadrature_nodes)
@@ -706,12 +720,17 @@ def phase_segment_shapes(r, algo_name: str, mode: str, tier: str, rule: str):
          full_live_samples=int((full[3] != 0).sum()),
          full_max_rel_err=full_err, full_max_abs_err=full_abs,
          full_ms=full_ms, full_plain_ms=full_plain_ms,
-         full_bound_ms=full_bound_ms, full_bound_by=full_bound_by)
+         full_bound_ms=full_bound_ms, full_bound_by=full_bound_by,
+         full_vs_exact_plain_max_rel_err=vs_exact)
     if not max(err, full_err) <= RTOL_SEGMENT:
         raise AssertionError(f"{algo_name} {mode} {tier}: segment kernel vs "
                              f"plain at live shapes: rel err {err:.3g} "
                              f"(slice), {full_err:.3g} (whole) > "
                              f"{RTOL_SEGMENT:g}")
+    if vs_exact is not None and not vs_exact <= RTOL_PAIRED:
+        raise AssertionError(f"{algo_name} discrete paired vs the exact "
+                             f"plain version: rel err {vs_exact:.3g} > "
+                             f"{RTOL_PAIRED:g}")
     return dict(max_abs_err=max(abs_err, full_abs), ms=full_ms,
                 plain_ms=full_plain_ms, bound_ms=full_bound_ms,
                 bound_by=full_bound_by, library_ms=None)
@@ -734,7 +753,7 @@ def slot_variants():
 
 def run_slot_kernel(kind, planes, segs, lights, step, kw, reps=3):
     """A slot kernel and its plain version on the same inputs: returns
-    (max rel err, max abs err, kernel ms, plain ms)."""
+    (max rel err, max abs err, kernel ms, plain ms, kernel output)."""
     from volumerenderer_tpu_torch.ops.kernels import gather_vpu as gv
 
     if kind == "vpu":
@@ -755,7 +774,7 @@ def run_slot_kernel(kind, planes, segs, lights, step, kw, reps=3):
     ref, plain_ms = cuda_timed(ref_fn)
     if not bool((got[planes[3] == 0] == 0).all()):
         raise AssertionError("slot kernel: a zero-weight sample is not 0")
-    return rel_err(got, ref), float((got - ref).abs().max()), ms, plain_ms
+    return rel_err(got, ref), float((got - ref).abs().max()), ms, plain_ms, got
 
 
 def phase_slot_kernel():
@@ -770,9 +789,9 @@ def phase_slot_kernel():
     n0 = dict(gv.launches)
     zero = float((planes[3] == 0).double().mean())
     for label, kind, kw in slot_variants():
-        err, abs_err, ms, plain_ms = run_slot_kernel(
+        err, abs_err, ms, plain_ms, _ = run_slot_kernel(
             kind, planes, segs, lights, 0.3, kw)
-        tol = RTOL_PAIRED if kw["paired"] else RTOL_EXACT
+        tol = slot_tol(kind, kw)
         emit("slotkernel", variant=label, R=SYNTH_CP, C=SEG_RC,
              zero_weight_share=zero, max_rel_err=err, max_abs_err=abs_err,
              tol=tol, ms=ms, plain_ms=plain_ms)
@@ -782,6 +801,15 @@ def phase_slot_kernel():
     gv.launches.update(n0)  # comparison launches are not main-path launches
     del planes
     torch.cuda.empty_cache()
+
+
+def slot_tol(kind: str, kw: dict) -> float:
+    """A slot kernel's tolerance against its plain version in the same
+    tier: the segment kernels' RTOL_SEGMENT; the point kernel's paired tier
+    RTOL_PAIRED, as in the lane layout."""
+    if kind != "vpu":
+        return RTOL_SEGMENT
+    return RTOL_PAIRED if kw["paired"] else RTOL_EXACT
 
 
 def slot_kind(algo_name: str, mode: str) -> tuple:
@@ -882,9 +910,9 @@ def phase_uncached_step(r):
 
 
 def phase_slot_shapes(r, algo_name, tier, mode, seg_tier, rule):
-    """The run's slot kernel against its plain version on SLOT_RAYS rays of
-    the live ViewCache (around the image centre) and the next frame's
-    lights."""
+    """The run's slot kernel against its plain version on the next frame's
+    lights, on SLOT_RAYS rays of the live ViewCache (around the image
+    centre), then on the whole ViewCache, as one frame's launch takes it."""
     import torch
 
     from volumerenderer_tpu_torch.ops.kernels import gather_vpu as gv
@@ -901,6 +929,7 @@ def phase_slot_shapes(r, algo_name, tier, mode, seg_tier, rule):
             lights.valid[0])
     key, kind = slot_kind(algo_name, mode)
     variant = variant_of(algo_name, mode, rule)
+    step = r.params.light_ray_step_size
     once = 0
     if kind == "vpu":
         valid = segs[3].to(torch.int32)
@@ -916,28 +945,24 @@ def phase_slot_shapes(r, algo_name, tier, mode, seg_tier, rule):
         if kind == "analytic":
             kw.update(quad_rule=rule,
                       quad_nodes=r.config.beam_quadrature_nodes)
-        per_sample = ops_per_sample(variant, segs=segs,
-                                    step=r.params.light_ray_step_size,
+        per_sample = ops_per_sample(variant, segs=segs, step=step,
                                     nodes=r.config.beam_quadrature_nodes)
-        once = call_ops(variant, segs=segs, step=r.params.light_ray_step_size)
+        once = call_ops(variant, segs=segs, step=step)
         table = 32 * segs[0].shape[0]
     n0 = dict(gv.launches)
-    err, abs_err, ms, plain_ms = run_slot_kernel(
-        kind, planes, segs, light_args, r.params.light_ray_step_size, kw,
-        reps=5)
-    # The kernel alone on the whole ViewCache, as one frame runs it.
+    err, abs_err, ms, plain_ms, _ = run_slot_kernel(
+        kind, planes, segs, light_args, step, kw, reps=5)
     full = (v.wx, v.wy, v.wz, v.weight)
-    if kind == "vpu":
-        full_fn = lambda: gv.gather_vpu(*full, *light_args, **kw)
-    elif kind == "discrete":
-        full_fn = lambda: gv.gather_segments_discrete(
-            *full, *segs, r.params.light_ray_step_size, **kw)
-    else:
-        full_fn = lambda: gv.gather_segments_analytic(*full, *segs, **kw)
-    full_fn()
-    _, full_view_ms = cuda_timed(full_fn, 3)
+    full_err, full_abs, full_ms, full_plain_ms, got = run_slot_kernel(
+        kind, full, segs, light_args, step, kw)
     gv.launches.update(n0)  # comparison launches are not main-path launches
-    tol = RTOL_PAIRED if kw["paired"] else RTOL_EXACT
+    vs_exact = None
+    if kind == "discrete" and kw["paired"]:  # the paired tier against exact
+        vs_exact = rel_err(got, gv.gather_segments_discrete_reference(
+            *full, *segs, step, sphere_radius=kw["sphere_radius"],
+            max_elems=PLAIN_ELEMS))
+    del got
+    tol = slot_tol(kind, kw)
     bound_ms, bound_by = slot_bound(planes[3], per_sample, table, once)
     full_bound_ms, full_bound_by = slot_bound(v.weight, per_sample, table,
                                               once)
@@ -946,14 +971,22 @@ def phase_slot_shapes(r, algo_name, tier, mode, seg_tier, rule):
          live_samples=int((planes[3] != 0).sum()),
          lights=int(segs[3].sum()), max_rel_err=err, max_abs_err=abs_err,
          tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-         bound_by=bound_by, full_view_ms=full_view_ms,
+         bound_by=bound_by, full_view_ms=full_ms,
          full_view_live_samples=int((v.weight != 0).sum()),
-         full_view_bound_ms=full_bound_ms, full_view_bound_by=full_bound_by)
-    if not err <= tol:
+         full_view_max_rel_err=full_err, full_view_max_abs_err=full_abs,
+         full_view_plain_ms=full_plain_ms,
+         full_view_bound_ms=full_bound_ms, full_view_bound_by=full_bound_by,
+         full_view_vs_exact_plain_max_rel_err=vs_exact)
+    if not max(err, full_err) <= tol:
         raise AssertionError(f"{key} vs plain at the live shapes: rel err "
-                             f"{err:.3g} > {tol:g}")
-    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                             f"{err:.3g} (slice), {full_err:.3g} (whole) > "
+                             f"{tol:g}")
+    if vs_exact is not None and not vs_exact <= RTOL_PAIRED:
+        raise AssertionError(f"{key} paired vs the exact plain version: rel "
+                             f"err {vs_exact:.3g} > {RTOL_PAIRED:g}")
+    return dict(max_abs_err=max(abs_err, full_abs), ms=full_ms,
+                plain_ms=full_plain_ms, bound_ms=full_bound_ms,
+                bound_by=full_bound_by, library_ms=None)
 
 
 def phase_drag():

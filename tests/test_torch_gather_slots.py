@@ -294,3 +294,31 @@ def test_empty_ranges_give_zero(case, kind):
                                       sphere_radius=RADIUS, layout="slots",
                                       quad_rule="tangent", paired=True)
     assert out.shape == (R, C) and not out.any()
+
+
+@pytest.mark.parametrize("kind", ["discrete", "vbl"])
+def test_live_sample_wrappers_refuse_2_31_samples(kind):
+    """The discrete and VBL slot kernels index samples in int32: planes of
+    2^31 samples or more are refused on every device, one sample fewer
+    passes that check (and then meets the device check: meta tensors run
+    nowhere).  The VRL kernel has no such limit."""
+    segs = (torch.zeros(8, 3, device="meta"), torch.ones(8, 3, device="meta"),
+            torch.ones(8, device="meta"),
+            torch.ones(8, dtype=torch.bool, device="meta"))
+
+    def call(shape, radius=RADIUS):
+        planes = [torch.empty(shape, device="meta") for _ in range(4)]
+        if kind == "discrete":
+            return tvpu.gather_segments_discrete(*planes, *segs, STEP,
+                                                 sphere_radius=radius)
+        return tvpu.gather_segments_analytic(*planes, *segs,
+                                             sphere_radius=radius)
+
+    for shape in ((2**16, 2**15), (2**31 + 1, 1)):
+        with pytest.raises(ValueError, match="fewer than 2\\^31"):
+            call(shape)
+    with pytest.raises(ValueError, match="unsupported device"):
+        call((2**31 - 1, 1))
+    if kind == "vbl":
+        with pytest.raises(ValueError, match="unsupported device"):
+            call((2**16, 2**15), radius=None)

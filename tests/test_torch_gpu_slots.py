@@ -11,14 +11,19 @@ Without a GPU every test skips.  The inputs reuse the segment kernels'
 edge cases (test_torch_gpu_segments.inputs: zero-length, ns = 0, ns % 4
 != 0 and 533-sub-light segments, a range starting at 1 with an odd count,
 samples on a sub-light, at a Beam centre and inside a beam) read as (R, C)
-slots, with zero-weight samples among live ones and all-zero blocks.
+slots, with zero-weight samples among live ones and all-zero blocks.  The
+discrete kernel's staged sub-light table takes the lane kernel's staging
+cases (test_torch_gpu_segments.staging_inputs) read as slots.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from test_torch_gpu_segments import RADIUS, STEP, inputs
+from test_torch_gpu_segments import (
+    DISCRETE, ONE_STAGE, RADIUS, RC, STEP, TWO_STAGES, inputs,
+    staging_inputs,
+)
 from volumerenderer_tpu_torch.ops.kernels import gather_vpu as tvpu
 
 KIND = {"vpu": "vpu", "discrete": "segment_discrete"}
@@ -88,6 +93,18 @@ def test_cuda_slot_kernel_matches_plain_version(kind, kw):
                                rtol=2e-5, atol=0)
 
 
+def chunked_segments():
+    """2,500 short segments, valid from 3: 2,497, more than one chunk of
+    1,024 and an odd count (the paired closed rule's tail)."""
+    rs = np.random.RandomState(6)
+    L = 2500
+    pf = (rs.randn(L, 3) * 8 + 15).astype(np.float32)
+    pt = pf + (rs.randn(L, 3) * 0.6).astype(np.float32)
+    inten = (rs.rand(L) * 30).astype(np.float32)
+    valid = np.arange(L) >= 3
+    return [torch.as_tensor(a).cuda() for a in (pf, pt, inten, valid)]
+
+
 @pytest.mark.gpu
 def test_cuda_slot_kernels_take_more_than_one_chunk():
     """More than 1024 segments: each sample keeps one running sum across
@@ -95,13 +112,7 @@ def test_cuda_slot_kernels_take_more_than_one_chunk():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
     planes, _, _ = slot_args()
-    rs = np.random.RandomState(6)
-    L = 2500
-    pf = (rs.randn(L, 3) * 8 + 15).astype(np.float32)
-    pt = pf + (rs.randn(L, 3) * 0.6).astype(np.float32)
-    inten = (rs.rand(L) * 30).astype(np.float32)
-    valid = np.arange(L) >= 3
-    segs = [torch.as_tensor(a).cuda() for a in (pf, pt, inten, valid)]
+    segs = chunked_segments()
     for kind, kw in (("discrete", dict(sphere_radius=RADIUS, paired=False)),
                      ("discrete", dict(sphere_radius=None, paired=True)),
                      ("analytic", dict(sphere_radius=None, paired=True)),
@@ -111,3 +122,80 @@ def test_cuda_slot_kernels_take_more_than_one_chunk():
         ref = run(kind, planes, segs, None, kw, plain=True)
         np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                    rtol=2e-5, atol=0, err_msg=str(kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paired", [False, True], ids=["exact", "paired"])
+@pytest.mark.parametrize("rule", ["midpoint", "tangent", "closed"])
+def test_cuda_slot_vbl_kernel_takes_more_than_one_chunk(rule, paired):
+    """The VBL kernel on the live-sample loop over 2,497 segments (three
+    chunks, an odd count): each rule and tier against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    planes, _, _ = slot_args()
+    kw = dict(sphere_radius=RADIUS, quad_rule=rule, paired=paired)
+    n0 = tvpu.launches["segment_sphere"]
+    got = run("analytic", planes, chunked_segments(), None, kw, plain=False)
+    ref = run("analytic", planes, chunked_segments(), None, kw, plain=True)
+    torch.cuda.synchronize()
+    assert tvpu.launches["segment_sphere"] == n0 + 1
+    assert not got[planes[3] == 0].any() and got.abs().max() > 0
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=2e-5, atol=0)
+
+
+DISCRETE_IDS = ["ray_exact", "ray_paired", "beam_exact", "beam_paired"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cut", [0, 5], ids=["whole_spans", "ragged"])
+@pytest.mark.parametrize("lengths", [ONE_STAGE, TWO_STAGES],
+                         ids=["one_stage", "two_stages"])
+@pytest.mark.parametrize("kw", DISCRETE, ids=DISCRETE_IDS)
+def test_cuda_slot_discrete_kernel_staged_table(kw, lengths, cut):
+    """The slots discrete kernel's staged sub-light table, each template
+    against its plain version at rtol 2e-5 (paired also against the exact
+    plain version at 3e-5): one stage and more than one (a segment split
+    between two stages), segments of ns = 0 and paired overruns between
+    long ones, a third of the samples dead, on 24 x 2048 samples (whole
+    spans of 512) and 24 x 2043 (a ragged last span)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    args, _need = staging_inputs(lengths)
+    planes = [a[:, :RC - cut].contiguous() for a in args[:4]]
+    segs = args[4:]
+    assert (planes[0].numel() % 512 == 0) == (cut == 0)
+    n0 = tvpu.launches["segment_discrete"]
+    got = tvpu.gather_segments_discrete(*planes, *segs, STEP, **kw)
+    ref = tvpu.gather_segments_discrete_reference(*planes, *segs, STEP, **kw)
+    torch.cuda.synchronize()
+    assert tvpu.launches["segment_discrete"] == n0 + 1
+    live = planes[3] != 0
+    assert torch.isfinite(got).all()
+    assert not got[~live].any() and (got[live] > 0).all()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=2e-5, atol=0)
+    if kw["paired"]:
+        exact = tvpu.gather_segments_discrete_reference(
+            *planes, *segs, STEP, sphere_radius=kw["sphere_radius"])
+        np.testing.assert_allclose(got.cpu().numpy(), exact.cpu().numpy(),
+                                   rtol=3e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", DISCRETE, ids=DISCRETE_IDS)
+def test_cuda_slot_discrete_kernel_without_sublights_or_live_samples(kw):
+    """Valid segments all shorter than a step (no sub-light), no valid
+    segment, and every sample dead: every sample is 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    args, _need = staging_inputs([0.1, 0.2, 0.25, 0.05])
+    for valid in (args[7], torch.zeros_like(args[7])):
+        got = tvpu.gather_segments_discrete(*args[:7], valid, STEP, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == args[0].shape and not got.any()
+    args, _need = staging_inputs(ONE_STAGE)
+    got = tvpu.gather_segments_discrete(*args[:3], torch.zeros_like(args[3]),
+                                        *args[4:], STEP, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == args[0].shape and not got.any()

@@ -28,19 +28,20 @@
 // function unit, its refinement and a range check) is the costliest of a
 // term's instructions.
 //
-// discrete_kernel: the sub-light positions do not depend on the sample, so
+// discrete_kernel (gather_terms.cuh, shared with the slots kernel of
+// gather_vpu.cu): the sub-light positions do not depend on the sample, so
 // each block expands them once into shared memory (stage_sublights), from
 // an exclusive prefix of ns over the segment range that the wrapper
 // computes on the device, and then runs the point or sphere term over that
-// table with the many-light kernel's loop (gather_terms.cuh
-// live_sample_loop and staged_light_sums / staged_group_sums): persistent
-// blocks that take only live samples (w != 0, j < lane_need), kSamples a
-// thread, so one shared-memory broadcast feeds kSamples terms and no warp
-// waits for its longest lane.  Each sample's w * sum goes to a (Cp, Rc)
-// scratch plane, and lane_sum_kernel adds a lane's samples in row order,
-// the reference's running sum.  The table is staged whole when it fits in
-// kStage entries (32 KB, the bench config's 1,500-1,800 sub-lights), in
-// chunks for every batch of samples beyond that.
+// table with the many-light kernel's loop (live_sample_loop and
+// staged_light_sums / staged_group_sums): persistent blocks that take only
+// live samples (w != 0, j < lane_need), kSamples a thread, so one
+// shared-memory broadcast feeds kSamples terms and no warp waits for its
+// longest lane.  Each sample's w * sum goes to a (Cp, Rc) scratch plane,
+// and lane_sum_kernel adds a lane's samples in row order, the reference's
+// running sum.  The table is staged whole when it fits in kStage entries
+// (32 KB, the bench config's 1,500-1,800 sub-lights), in chunks for every
+// batch of samples beyond that.
 //
 // analytic_kernel: one thread per lane, samples streamed from the (Cp, Rc)
 // planes (a warp's loads of row j are contiguous), the segment table (ax,
@@ -114,96 +115,8 @@ __device__ __forceinline__ void lane_loop(
 
 // ---- kernel 2: discrete sub-lights ----
 
-// Stages entries [e0, e0 + n) of the frame's sub-light table.  Segment k of
-// [start, start + count) owns entries [first[k], first[k] + slots_k), with
-// slots_k = ns_k (exact) or ns_k rounded up to whole groups of 4 (paired);
-// its sub-light s sits at a + (float(s) * step) * u, computed as sub_d2e
-// computes it, so the staged position has the same bits.  A warp takes one
-// segment at a time and its lanes the segment's entries.  Exact entries
-// carry li = ii_k; paired entries carry 0 (a sub-light) or 1 (an overrun
-// slot), and each group's last entry writes s_group = (ii_k, 1 if it ends
-// segment k).  The caller synchronises before and after.
-template <bool kPaired>
-__device__ __forceinline__ void stage_sublights(
-    const float* __restrict__ table, const int* __restrict__ first,
-    int start, int count, int e0, int n, float step, float4* s_light,
-    float2* s_group) {
-  const float4* t4 = reinterpret_cast<const float4*>(table);
-  const int lane = threadIdx.x & 31;
-  for (int k = start + (threadIdx.x >> 5); k < start + count; k += kWarps) {
-    const float4 c = t4[2 * k + 1];
-    const int ns = __float_as_int(c.z);
-    const int slots = kPaired ? (ns + 3) & ~3 : ns;
-    const int f = first[k];
-    const int lo = max(f, e0);
-    const int hi = min(f + slots, e0 + n);
-    if (lo >= hi) continue;  // the same for the whole warp
-    const float4 a = t4[2 * k];
-    for (int e = lo + lane; e < hi; e += 32) {
-      const int s = e - f;
-      const float sf = static_cast<float>(s) * step;
-      const float li = kPaired ? (s >= ns ? 1.0f : 0.0f) : c.w;
-      s_light[e - e0] = make_float4(a.x + sf * a.w, a.y + sf * c.x,
-                                    a.z + sf * c.y, li);
-      if (kPaired && (s & 3) == 3) {
-        s_group[(e - e0) >> 2] =
-            make_float2(c.w, s + 1 == slots ? 1.0f : 0.0f);
-      }
-    }
-  }
-}
-
-// The sub-light table for live_sample_loop, in stages of kStage entries
-// (a multiple of 4, so no paired group straddles two stages).
-template <bool kPaired>
-struct SublightStage {
-  const float* table;
-  const int* first;
-  int start, count, total;
-  float step;
-  float4* s_light;
-  float2* s_group;
-  int e0;
-
-  __device__ __forceinline__ void begin() { e0 = 0; }
-  __device__ __forceinline__ bool done() const { return e0 >= total; }
-  __device__ __forceinline__ int next() {
-    const int n = min(kStage, total - e0);
-    stage_sublights<kPaired>(table, first, start, count, e0, n, step,
-                             s_light, s_group);
-    e0 += n;
-    return n;
-  }
-};
-
-// Pass 1: each live sample (j < lane_need, w != 0) of the (Cp, Rc) planes
-// gets terms[j, lane] = w * (its sum over the sub-lights), every other
-// sample 0, by the persistent loop of gather_terms.cuh.
-template <bool kSphere, bool kPaired>
-__global__ void __launch_bounds__(kThreads) discrete_kernel(
-    const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ pz, const float* __restrict__ w,
-    const int* __restrict__ lane_need, const float* __restrict__ table,
-    const int* __restrict__ first, const int* __restrict__ meta, int L,
-    int Rc, int N, float step, float radius, int* __restrict__ next_span,
-    float* __restrict__ terms) {
-  __shared__ float4 s_light[kStage];
-  __shared__ float2 s_group[kPaired ? kStage / 4 : 1];
-  __shared__ LiveShared sh;
-  // Segment range and table size read on the device: no host sync.
-  const int start = max(meta[0], 0);
-  const int count = max(min(meta[1], L - start), 0);
-  const int total = max(meta[2], 0);
-  SublightStage<kPaired> stage{table, first, start, count, total, step,
-                               s_light, s_group, 0};
-  if constexpr (kPaired) {
-    live_sample_loop(px, py, pz, w, lane_need, Rc, N, next_span, terms,
-                     stage, GroupSums<kSphere>{s_light, s_group, radius}, sh);
-  } else {
-    live_sample_loop(px, py, pz, w, lane_need, Rc, N, next_span, terms,
-                     stage, LightSums<kSphere>{s_light, radius}, sh);
-  }
-}
+// Pass 1 is gather_terms.cuh's discrete_kernel with lane_need, into a
+// (Cp, Rc) scratch plane of terms[j, lane] = w * (the sample's sum).
 
 // Pass 2: out[lane] = terms[0, lane] + terms[1, lane] + ... over
 // j < lane_need, in row order, one thread a lane: the reference's running

@@ -4,9 +4,10 @@
 // one __global__ template per kernel body:
 //   * vpu_kernel              <- `gather_vpu` -> `_kernel`: point or sphere
 //     lights, exact or paired (one divide per 4 lights);
-//   * segment_discrete_kernel <- `gather_segments_discrete` ->
+//   * discrete_kernel (gather_terms.cuh) <- `gather_segments_discrete` ->
 //     `_segment_discrete_kernel`: the uncapped sub-light walk of each
-//     Ray/VRL (point) or Beam/VBL (sphere) segment, exact or paired;
+//     Ray/VRL (point) or Beam/VBL (sphere) segment, exact or paired: the
+//     lane layout's kernel without its lane_need;
 //   * segment_kernel          <- `gather_segments_analytic` ->
 //     `_segment_kernel`: the closed-form VRL line integral, exact or paired
 //     (two segments per trip);
@@ -17,26 +18,29 @@
 // layouts evaluate each (sample, light) and (sample, segment) term the same.
 //
 // Layout: the planes px, py, pz, w are the (R, C) row-major planes of a
-// ViewCache, read as one flat array of N = R * C samples.  Each thread owns
-// one sample and writes out[i] = w[i] * (sum over the lights or segments of
+// ViewCache, read as one flat array of N = R * C samples.  Each kernel
+// writes out[i] = w[i] * (sum over the lights or segments of
 // [start, start + count)), the same (R, C) array the TPU kernel returns.
-// The range is read on the device (no host sync).  Lights and segments are
-// staged in shared memory in chunks of 1024 and read as broadcasts; each
-// sample keeps one running sum across the chunks, in the reference order.
+// The range is read on the device (no host sync).  Each sample keeps one
+// running sum across the staged chunks, in the reference order.
 //
-// Block skipping: the TPU kernel zeroes whole 65,536-sample blocks whose
+// Dead samples: the TPU kernel zeroes whole 65,536-sample blocks whose
 // weights are all zero.  Here a sample with w == 0 writes 0 without
-// evaluating its sum, and a block of 256 such samples returns at once.  That
-// equals the TPU's w * sum wherever the sum is finite, which the guards
-// ensure (every divide is by a guarded or floored denominator).
+// evaluating its sum.  That equals the TPU's w * sum wherever the sum is
+// finite, which the guards ensure (every divide is by a guarded or floored
+// denominator).
 //
-// What bounds it on this card: f32 divides, square roots and the polynomial
-// atan over the live samples, not bytes.  A live sample (16 B of planes,
-// 4 B of output) meets every light, every sub-light of every segment or
-// every segment; the design keeps the operands on chip (lights in shared
-// memory, the sum in a register) and skips the dead samples, which are
-// most of an uncached view (rays that miss the volume, samples past the
-// transmittance cutoff).
+// What bounds them on this card: f32 divides, square roots and the
+// polynomial atan over the live samples, not bytes.  A live sample (16 B
+// of planes, 4 B of output) meets every light, every sub-light of every
+// segment or every segment; the operands stay on chip (tables in shared
+// memory, sums in registers).  Most samples of a ViewCache are dead (~92%
+// at the bench config: rays that miss the volume, samples past the
+// transmittance cutoff), so the two costliest kernels, the discrete and the
+// VBL one, run gather_terms.cuh's persistent live_sample_loop: blocks that
+// take only live samples, kSamples a thread.  The point/sphere and the VRL
+// kernels still give one thread to each sample (slot_loop), and a block of
+// 256 dead samples returns at once.
 
 #include "gather_terms.cuh"
 
@@ -44,8 +48,9 @@ namespace {
 
 using namespace vr;
 
-// The loop every slot kernel shares: stage(c0, n) stages chunk c0's n
-// entries; body(n, c0, x, y, z, acc) adds them to a sample's running sum.
+// The one-thread-a-sample loop of vpu_kernel and segment_kernel:
+// stage(c0, n) stages chunk c0's n entries; body(n, c0, x, y, z, acc) adds
+// them to a sample's running sum.
 template <class Body, class Stage>
 __device__ __forceinline__ void slot_loop(
     const float* __restrict__ px, const float* __restrict__ py,
@@ -120,24 +125,7 @@ __global__ void __launch_bounds__(kThreads) vpu_kernel(
             LightStage{lpos, li, L, start, s_light});
 }
 
-// ---- gather_vpu._segment_discrete_kernel ----
-
-template <bool kSphere, bool kPaired>
-__global__ void __launch_bounds__(kThreads) segment_discrete_kernel(
-    const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ pz, const float* __restrict__ w,
-    const float* __restrict__ table, const int* __restrict__ meta, int L,
-    long long N, float step, float radius, float* __restrict__ out) {
-  __shared__ float4 s_a[kChunk];
-  __shared__ float4 s_c[kChunk];
-  int start, count;
-  light_range(meta, L, &start, &count);
-  const DiscreteBody<kSphere, kPaired> body{s_a, s_c, step, radius};
-  slot_loop(px, py, pz, w, N, count, out, body,
-            SegmentStage{table, start, s_a, s_c});
-}
-
-// ---- gather_vpu._segment_kernel (VRL) and _segment_sphere_kernel (VBL) ----
+// ---- gather_vpu._segment_kernel (VRL) ----
 
 template <int kVariant, bool kPaired>
 __device__ __forceinline__ void analytic_slots(
@@ -168,20 +156,88 @@ __global__ void __launch_bounds__(kThreads) segment_kernel(
                                 0.0f, out, s_a, s_c, nullptr, nullptr);
 }
 
+// ---- gather_vpu._segment_sphere_kernel (VBL) ----
+
+// The segment table for live_sample_loop, in chunks of kChunk segments (an
+// even count, so no pair of the paired closed rule straddles two chunks).
+// c0 is the first index of the chunk last staged, which AnalyticBody reads.
+struct SegmentChunks {
+  const float* table;
+  int start, count;
+  float4* s_a;
+  float4* s_c;
+  int c0, cursor;
+
+  __device__ __forceinline__ void begin() { cursor = 0; }
+  __device__ __forceinline__ bool done() const { return cursor >= count; }
+  __device__ __forceinline__ int next() {
+    c0 = cursor;
+    const int n = min(kChunk, count - c0);
+    stage_segments(table, start + c0, n, s_a, s_c);
+    cursor += n;
+    return n;
+  }
+};
+
+// a[s] for a runtime s, and a[s] = v, by selects: the arrays stay in
+// registers where an index that is not a constant would put them in local
+// memory.
+__device__ __forceinline__ float pick(const float (&a)[kSamples], int s) {
+  float v = a[0];
+#pragma unroll
+  for (int i = 1; i < kSamples; ++i) v = s == i ? a[i] : v;
+  return v;
+}
+
+__device__ __forceinline__ void put(float (&a)[kSamples], int s, float v) {
+#pragma unroll
+  for (int i = 0; i < kSamples; ++i) a[i] = s == i ? v : a[i];
+}
+
+// A chunk of segments added to each of a thread's kSamples samples, one
+// sample after another (the loop is not unrolled, so one AnalyticBody's
+// temporaries are live at a time): the body, the order and so the bits of
+// the one-thread-a-sample kernel.
+template <int kVariant, bool kPaired>
+struct AnalyticSums {
+  AnalyticBody<kVariant, kPaired> body;
+  const SegmentChunks* stage;
+  __device__ __forceinline__ void operator()(
+      int n, const float (&x)[kSamples], const float (&y)[kSamples],
+      const float (&z)[kSamples], float (&acc)[kSamples],
+      float (& /*part*/)[kSamples]) const {
+#pragma unroll 1
+    for (int s = 0; s < kSamples; ++s) {
+      put(acc, s, body(n, stage->c0, pick(x, s), pick(y, s), pick(z, s),
+                       pick(acc, s)));
+    }
+  }
+};
+
+// Shared memory: the segment chunk 32 KB, the nodes 8 KB and the loop's
+// queue ~6.1 KB, under the 48 KB of static shared memory.
 template <int kVariant, bool kPaired>
 __global__ void __launch_bounds__(kThreads) segment_sphere_kernel(
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz, const float* __restrict__ w,
     const float* __restrict__ table, const float* __restrict__ node_tab,
-    const int* __restrict__ meta, int L, long long N, int nodes,
-    float radius, float* __restrict__ out) {
+    const int* __restrict__ meta, int L, int N, int nodes, float radius,
+    int* __restrict__ next_span, float* __restrict__ out) {
   __shared__ float4 s_a[kChunk];
   __shared__ float4 s_c[kChunk];
   __shared__ float s_nx[kMaxNodes];
   __shared__ float s_nw[kMaxNodes];
-  analytic_slots<kVariant, kPaired>(px, py, pz, w, table, node_tab, meta, L,
-                                    N, nodes, radius, out, s_a, s_c, s_nx,
-                                    s_nw);
+  __shared__ LiveShared sh;
+  int start, count;
+  light_range(meta, L, &start, &count);
+  // Staged once per block; live_sample_loop synchronises after its first
+  // stage, before any sample reads the nodes.
+  stage_nodes(node_tab, nodes, s_nx, s_nw);
+  SegmentChunks stage{table, start, count, s_a, s_c, 0, 0};
+  const AnalyticSums<kVariant, kPaired> sums{
+      {s_a, s_c, s_nx, s_nw, nodes, count, radius}, &stage};
+  live_sample_loop(px, py, pz, w, nullptr, 0, N, next_span, out, stage, sums,
+                   sh);
 }
 
 dim3 blocks_of(long long N) {
@@ -198,12 +254,19 @@ void launch_vpu(const float* px, const float* py, const float* pz,
 }
 
 template <bool kSphere, bool kPaired>
-void launch_discrete(const float* px, const float* py, const float* pz,
-                     const float* w, const float* table, const int* meta,
-                     int L, long long N, float step, float radius, float* out,
-                     cudaStream_t s) {
-  segment_discrete_kernel<kSphere, kPaired><<<blocks_of(N), kThreads, 0, s>>>(
-      px, py, pz, w, table, meta, L, N, step, radius, out);
+int launch_discrete(const float* px, const float* py, const float* pz,
+                    const float* w, const float* table, const int* first,
+                    const int* meta, int L, int N, float step, float radius,
+                    int* next_span, float* out, cudaStream_t s) {
+  static ResidentBlocks resident;
+  unsigned blocks = 0;
+  const int err = persistent_blocks(discrete_kernel<kSphere, kPaired>,
+                                    resident, N, &blocks);
+  if (err != 0) return err;
+  discrete_kernel<kSphere, kPaired><<<blocks, kThreads, 0, s>>>(
+      px, py, pz, w, nullptr, table, first, meta, L, 0, N, step, radius,
+      next_span, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kPaired>
@@ -215,21 +278,31 @@ void launch_vrl(const float* px, const float* py, const float* pz,
 }
 
 template <int kVariant, bool kPaired>
-void launch_sphere(const float* px, const float* py, const float* pz,
-                   const float* w, const float* table, const float* node_tab,
-                   const int* meta, int L, long long N, int nodes,
-                   float radius, float* out, cudaStream_t s) {
-  segment_sphere_kernel<kVariant, kPaired><<<blocks_of(N), kThreads, 0, s>>>(
-      px, py, pz, w, table, node_tab, meta, L, N, nodes, radius, out);
+int launch_sphere(const float* px, const float* py, const float* pz,
+                  const float* w, const float* table, const float* node_tab,
+                  const int* meta, int L, int N, int nodes, float radius,
+                  int* next_span, float* out, cudaStream_t s) {
+  static ResidentBlocks resident;
+  unsigned blocks = 0;
+  const int err = persistent_blocks(segment_sphere_kernel<kVariant, kPaired>,
+                                    resident, N, &blocks);
+  if (err != 0) return err;
+  segment_sphere_kernel<kVariant, kPaired><<<blocks, kThreads, 0, s>>>(
+      px, py, pz, w, table, node_tab, meta, L, N, nodes, radius, next_span,
+      out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry points.  Planes px, py, pz, w and out: N f32 each (the flat
-// (R, C) planes); meta: int32[2] = (start, count) on the device.  Each
-// launches on `stream` and returns cudaGetLastError().  N <= 2^31 * 256.
+// (R, C) planes); meta: int32 (start, count, ...) on the device.  Each
+// launches on `stream` and returns a CUDA error code (0: launched).  The
+// point/sphere and VRL kernels take N <= 2^31 * 256; the discrete and VBL
+// kernels N < 2^31, with next_span one int32 set to 0 (the persistent
+// blocks' work counter).
 
-// lpos: (L, 3) f32; li: (L,) f32 = I / (4 pi).
+// lpos: (L, 3) f32; li: (L,) f32 = I / (4 pi); meta: int32[2].
 extern "C" int vr_gather_vpu(const float* px, const float* py,
                              const float* pz, const float* w,
                              const float* lpos, const float* li,
@@ -258,35 +331,32 @@ extern "C" int vr_gather_vpu(const float* px, const float* py,
 }
 
 // table: (L, 8) f32 rows (ax, ay, az, ux, uy, uz, ns as int32 bits,
-// I / ns / (4 pi)), 16-byte aligned.
+// I / ns / (4 pi)), 16-byte aligned; first: (L,) i32, the exclusive prefix
+// over [start, start + count) of ns_k (paired: ns_k rounded up to a
+// multiple of 4); meta: int32[3] = (start, count, total entries).
 extern "C" int vr_gather_vpu_discrete(const float* px, const float* py,
                                       const float* pz, const float* w,
-                                      const float* table, const int* meta,
-                                      int L, long long N, float step,
-                                      float radius, int sphere, int paired,
-                                      float* out, void* stream) {
+                                      const float* table, const int* first,
+                                      const int* meta, int L, int N,
+                                      float step, float radius, int sphere,
+                                      int paired, int* next_span, float* out,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VR_DISCRETE(SPHERE, PAIRED)                                          \
+  return launch_discrete<SPHERE, PAIRED>(px, py, pz, w, table, first, meta, \
+                                         L, N, step, radius, next_span,     \
+                                         out, s)
   if (sphere) {
-    if (paired) {
-      launch_discrete<true, true>(px, py, pz, w, table, meta, L, N, step,
-                                  radius, out, s);
-    } else {
-      launch_discrete<true, false>(px, py, pz, w, table, meta, L, N, step,
-                                   radius, out, s);
-    }
-  } else {
-    if (paired) {
-      launch_discrete<false, true>(px, py, pz, w, table, meta, L, N, step,
-                                   radius, out, s);
-    } else {
-      launch_discrete<false, false>(px, py, pz, w, table, meta, L, N, step,
-                                    radius, out, s);
-    }
+    if (paired) VR_DISCRETE(true, true);
+    VR_DISCRETE(true, false);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (paired) VR_DISCRETE(false, true);
+  VR_DISCRETE(false, false);
+#undef VR_DISCRETE
 }
 
-// table: (L, 8) f32 rows (ax, ay, az, ux, uy, uz, length, I / (4 pi L)).
+// table: (L, 8) f32 rows (ax, ay, az, ux, uy, uz, length, I / (4 pi L));
+// meta: int32[2].
 extern "C" int vr_gather_vpu_vrl(const float* px, const float* py,
                                  const float* pz, const float* w,
                                  const float* table, const int* meta, int L,
@@ -301,45 +371,38 @@ extern "C" int vr_gather_vpu_vrl(const float* px, const float* py,
   return static_cast<int>(cudaGetLastError());
 }
 
-// table as for vr_gather_vpu_vrl; node_tab: (2, max(nodes, 1)) f32 node
-// fractions / Gauss-Legendre nodes, then weights; nodes <= 1024.
+// table and meta as for vr_gather_vpu_vrl; node_tab: (2, max(nodes, 1)) f32
+// node fractions / Gauss-Legendre nodes, then weights; nodes <= 1024.
 // variant: 1 midpoint, 2 tangent, 3 closed.
 extern "C" int vr_gather_vpu_sphere(const float* px, const float* py,
                                     const float* pz, const float* w,
                                     const float* table,
                                     const float* node_tab, const int* meta,
-                                    int L, long long N, int nodes,
-                                    float radius, int variant, int paired,
+                                    int L, int N, int nodes, float radius,
+                                    int variant, int paired, int* next_span,
                                     float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nodes < 0 || nodes > kMaxNodes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
 #define VR_SPHERE(V)                                                        \
-  do {                                                                      \
-    if (paired) {                                                           \
-      launch_sphere<V, true>(px, py, pz, w, table, node_tab, meta, L, N,    \
-                             nodes, radius, out, s);                        \
-    } else {                                                                \
-      launch_sphere<V, false>(px, py, pz, w, table, node_tab, meta, L, N,   \
-                              nodes, radius, out, s);                       \
-    }                                                                       \
-  } while (0)
+  return paired ? launch_sphere<V, true>(px, py, pz, w, table, node_tab,    \
+                                         meta, L, N, nodes, radius,         \
+                                         next_span, out, s)                 \
+                : launch_sphere<V, false>(px, py, pz, w, table, node_tab,   \
+                                          meta, L, N, nodes, radius,        \
+                                          next_span, out, s)
   switch (variant) {
     case kMidpoint:
       VR_SPHERE(kMidpoint);
-      break;
     case kTangent:
       VR_SPHERE(kTangent);
-      break;
     case kClosed:
       VR_SPHERE(kClosed);
-      break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef VR_SPHERE
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* vr_vpu_error_string(int code) {

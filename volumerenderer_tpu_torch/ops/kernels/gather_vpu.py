@@ -20,7 +20,10 @@ it so).
 Each wrapper launches csrc/gather_vpu.cu for CUDA tensors and counts the
 launch in ``launches``; for CPU tensors it runs its ``*_reference``, the
 same function in plain PyTorch.  It never sends a CUDA tensor to the plain
-version.
+version.  The discrete and the VBL kernels take only live samples through
+a loop that indexes samples in int32, so those two wrappers refuse planes
+of 2^31 samples or more (the 1080p ViewCache holds 298,598,400; a 4K one at
+a march cap of 144, 1.19e9).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from .gather_lanes import _INV_FOUR_PI, _light_range, _meta
 from .gather_segments import (
     MAX_NODES, PAIR_BIG, _VARIANTS, _analytic_terms, _chunks, _d2e_bad,
     _sublight_table, _table, analytic_cols, discrete_cols, node_table,
+    sublight_prefix,
 )
 
 # Kernel launches made by each wrapper (one key per TPU kernel body).
@@ -201,6 +205,13 @@ def _check(px, py, pz, wm, cols):
         raise ValueError("gather_vpu: a dimension exceeds the kernels' range")
 
 
+def _check_live_loop(px, what: str):
+    """The live-sample kernels (discrete, VBL) index samples in int32."""
+    if px.numel() >= 2**31:
+        raise ValueError(f"{what}: {px.numel()} samples; the kernel takes "
+                         f"fewer than 2^31")
+
+
 def _segment_cols(pos_from, pos_to, intensity, valid):
     L = pos_from.shape[0]
     return [("pos_from", pos_from, (L, 3), torch.float32),
@@ -218,10 +229,10 @@ def _lib():
         ll = ctypes.c_longlong
         lib.vr_gather_vpu.argtypes = [p] * 7 + [i, ll, f, i, i, p, p]
         lib.vr_gather_vpu_discrete.argtypes = (
-            [p] * 6 + [i, ll, f, f, i, i, p, p])
+            [p] * 7 + [i, i, f, f, i, i, p, p, p])
         lib.vr_gather_vpu_vrl.argtypes = [p] * 6 + [i, ll, i, p, p]
         lib.vr_gather_vpu_sphere.argtypes = (
-            [p] * 7 + [i, ll, i, f, i, i, p, p])
+            [p] * 7 + [i, i, i, f, i, i, p, p, p])
         for fn in ("vr_gather_vpu", "vr_gather_vpu_discrete",
                    "vr_gather_vpu_vrl", "vr_gather_vpu_sphere"):
             getattr(lib, fn).restype = i
@@ -276,24 +287,27 @@ def gather_segments_discrete(px, py, pz, wm, pos_from, pos_to, intensity,
                              sphere_radius=None,
                              paired: bool = False) -> torch.Tensor:
     """Discrete (uncapped) Ray/VRL or Beam/VBL sub-light gather over (R, C)
-    planes -> (R, C) f32 weighted sums."""
+    planes of fewer than 2^31 samples -> (R, C) f32 weighted sums."""
     _check(px, py, pz, wm, _segment_cols(pos_from, pos_to, intensity, valid))
+    _check_live_loop(px, "gather_segments_discrete")
     if px.device.type == "cpu":
         return gather_segments_discrete_reference(
             px, py, pz, wm, pos_from, pos_to, intensity, valid,
             light_ray_step_size, sphere_radius=sphere_radius, paired=paired)
     _require_cuda(px, "gather_segments_discrete")
+    dev = px.device
     out = torch.empty_like(px)
     if not out.numel():
         return out
     u, ns, ii, start, count = discrete_cols(pos_from, pos_to, intensity,
                                             valid, light_ray_step_size)
     table = _table(pos_from, u, ns.view(torch.float32), ii)
-    _run("vr_gather_vpu_discrete", px.device, px, py, pz, wm, table,
-         _meta(start, count, px.device), pos_from.shape[0], px.numel(),
-         f32(light_ray_step_size),
+    first, meta = sublight_prefix(ns, start, count, paired)
+    next_span = torch.zeros(1, dtype=torch.int32, device=dev)
+    _run("vr_gather_vpu_discrete", dev, px, py, pz, wm, table, first, meta,
+         pos_from.shape[0], px.numel(), f32(light_ray_step_size),
          f32(0.0 if sphere_radius is None else sphere_radius),
-         int(sphere_radius is not None), int(paired), out)
+         int(sphere_radius is not None), int(paired), next_span, out)
     launches["segment_discrete"] += 1
     return out
 
@@ -304,10 +318,13 @@ def gather_segments_analytic(px, py, pz, wm, pos_from, pos_to, intensity,
                              quad_rule: str = "midpoint",
                              paired: bool = False) -> torch.Tensor:
     """Closed-form VRL (``sphere_radius=None``) or VBL quadrature gather
-    over (R, C) planes -> (R, C) f32 weighted sums."""
+    over (R, C) planes (VBL: fewer than 2^31 samples) -> (R, C) f32
+    weighted sums."""
     if quad_rule not in ("midpoint", "tangent", "closed"):
         raise ValueError(f"unknown quadrature rule: {quad_rule!r}")
     _check(px, py, pz, wm, _segment_cols(pos_from, pos_to, intensity, valid))
+    if sphere_radius is not None:
+        _check_live_loop(px, "gather_segments_analytic")
     if px.device.type == "cpu":
         return gather_segments_analytic_reference(
             px, py, pz, wm, pos_from, pos_to, intensity, valid,
@@ -333,8 +350,10 @@ def gather_segments_analytic(px, py, pz, wm, pos_from, pos_to, intensity,
              int(paired), out)
         launches["segment_analytic"] += 1
     else:
+        next_span = torch.zeros(1, dtype=torch.int32, device=dev)
         _run("vr_gather_vpu_sphere", dev, px, py, pz, wm, table,
              node_table(rule, nodes, dev), meta, L, N, nodes,
-             f32(sphere_radius), _VARIANTS[rule], int(paired), out)
+             f32(sphere_radius), _VARIANTS[rule], int(paired), next_span,
+             out)
         launches["segment_sphere"] += 1
     return out
