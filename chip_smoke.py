@@ -15,7 +15,9 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                point/sphere, exact/paired, plus edge cases);
   4. segkernel the two segment kernels against their plain versions at
                synthetic shapes (Cp 144, Rc 65536): discrete point/sphere x
-               exact/paired and every analytic variant, with segments of
+               exact/paired and every analytic variant (the paired VRL
+               one also against the exact plain version, at
+               RTOL_PAIRED), with segments of
                ns = 0, zero length, ns % 4 != 0 and > 512 sub-lights, a
                range with start > 0 and an odd count, samples on a
                sub-light, at a Beam centre, inside a beam (q < r), and
@@ -29,22 +31,23 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                view's bands and one frame's lights;
   7. sphere    a few Sphere/VSL frames at the bench config;
   8. raybeam   the bench config for RAY discrete exact and paired, RAY
-               analytic paired, BEAM discrete exact and BEAM analytic
-               closed paired: step(8) warm-up, then step(16) timed; launches
-               of each segment kernel per frame;
+               analytic exact and paired, BEAM discrete exact and BEAM
+               analytic closed paired: step(8) warm-up, then step(16) timed;
+               launches of each segment kernel per frame;
   9. segshapes each segment kernel against its plain version on one
                frame's segments, on 65,536 lanes of the live widest band
                and on the whole widest band (as a frame launches it; the
-               paired discrete kernel also against the exact plain
-               version, at RTOL_PAIRED);
+               paired discrete and VRL kernels also against the exact
+               plain version, at RTOL_PAIRED);
  10. slotkernel the 16 slot-kernel templates (csrc/gather_vpu.cu) against
                their plain versions at synthetic (R, C) = (144, 65536) slot
                planes, about half of them at zero weight, with the segment
-               edge cases above and a light table of two chunks;
+               edge cases above and a light table of two chunks (the paired
+               VRL one also against the exact plain version);
  11. uncached  the bench config with compact_view=False (the slots
                ViewCache) for POINT exact and paired, RAY discrete exact
-               and paired, RAY analytic paired, BEAM discrete exact and
-               BEAM analytic closed paired: step(8) warm-up, step(8)
+               and paired, RAY analytic exact and paired, BEAM discrete
+               exact and BEAM analytic closed paired: step(8) warm-up, step(8)
                timed, slot-kernel launches per frame, peak memory, the
                image against a cached session at the same frame (rtol
                1e-5, atol 1e-7); and one uncached step (march + shade) per
@@ -52,8 +55,8 @@ Phases, each printed as one JSON line; any failure exits nonzero:
  12. slotshapes each run's slot kernel against its plain version on one
                frame's lights, on 65,536 rays of the live 1080p ViewCache
                and then on the whole ViewCache, as a frame launches it
-               (the paired discrete kernel also against the exact plain
-               version, at RTOL_PAIRED);
+               (the paired discrete and VRL kernels also against the exact
+               plain version, at RTOL_PAIRED);
  13. drag      the interactive viewer's setup at the bench config (RAY,
                motion_mode="coarse", first_frame_uncached, settle_chunks
                4): the first frame (warm), coarse drag frames, the settle
@@ -88,7 +91,8 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                widest band or the whole ViewCache, as a frame launches it.
 
 The lines before the last are the card's name and power limit as
-nvidia-smi gives them and a JSON object of the kernels (each with its
+nvidia-smi gives them and a JSON object of the kernels, one entry for each
+run of phases 5, 8, 11 and 16 (each with its launches in that run and its
 bound: the larger of its f32 operations at 67 TFLOP/s and its bytes at
 3.35 TB/s, counted for this run's inputs; the point lane kernel at the
 widest band, the others at the whole shape a frame launches: the widest
@@ -125,6 +129,7 @@ RTOL_SEGMENT = 2e-5
 RAYBEAM_RUNS = (  # (algorithm, segment_mode, segment_eval, quadrature rule)
     ("RAY", "discrete", "exact", "midpoint"),
     ("RAY", "discrete", "paired", "midpoint"),
+    ("RAY", "analytic", "exact", "midpoint"),
     ("RAY", "analytic", "paired", "midpoint"),
     ("BEAM", "discrete", "exact", "midpoint"),
     ("BEAM", "analytic", "paired", "closed"),
@@ -152,6 +157,7 @@ UNCACHED_RUNS = (  # (algorithm, gather_eval, segment_mode, segment_eval, rule)
     ("POINT", "paired", "discrete", "exact", "midpoint"),
     ("RAY", "exact", "discrete", "exact", "midpoint"),
     ("RAY", "exact", "discrete", "paired", "midpoint"),
+    ("RAY", "exact", "analytic", "exact", "midpoint"),
     ("RAY", "exact", "analytic", "paired", "midpoint"),
     ("BEAM", "exact", "discrete", "exact", "midpoint"),
     ("BEAM", "exact", "analytic", "paired", "closed"),
@@ -442,6 +448,36 @@ def segment_variants():
     return out
 
 
+def held_against_exact(kind: str, kw: dict, live: bool = True) -> bool:
+    """Whether a paired segment kernel is also held against the exact
+    plain version at RTOL_PAIRED: the closed-form VRL everywhere, the
+    discrete kernels at a frame's live shapes (the synthetic tables put
+    samples inside beams and on sub-lights, where the paired Beam tier
+    reads 3.4e-5 from exact; the VBL rules' pairing reorders terms that
+    cancel, and the JAX suite bounds it at 2e-4)."""
+    return bool(kw.get("paired")) and (
+        (kind == "discrete" and live)
+        or (kind == "analytic" and kw.get("sphere_radius") is None))
+
+
+def lane_exact_plain(kind, planes, segs, need, step, kw):
+    """The exact plain version of a lane segment kernel's call."""
+    from volumerenderer_tpu_torch.ops.kernels import gather_segments as gs
+
+    if kind == "discrete":
+        return gs.gather_segments_discrete_lanes_reference(
+            *planes, *segs, step, lane_need=need,
+            sphere_radius=kw["sphere_radius"], max_elems=PLAIN_ELEMS)
+    return gs.gather_segments_analytic_lanes_reference(
+        *planes, *segs, lane_need=need, max_elems=PLAIN_ELEMS // 16)
+
+
+def check_vs_exact(what: str, err) -> None:
+    if err is not None and not err <= RTOL_PAIRED:
+        raise AssertionError(f"{what} paired vs the exact plain version: "
+                             f"rel err {err:.3g} > {RTOL_PAIRED:g}")
+
+
 def run_segment_kernel(kind, planes, segs, need, step, kw, reps=3):
     """The kernel and its plain version on the same inputs: returns
     (max rel err, max abs err, kernel ms, plain ms, kernel output)."""
@@ -487,16 +523,21 @@ def phase_segment_kernel():
              for label, kind, kw in segment_variants() if kind == "discrete"]
     n0 = dict(gs.launches)
     for label, kind, kw, table in runs:
-        err, abs_err, ms, plain_ms, _ = run_segment_kernel(
+        err, abs_err, ms, plain_ms, got = run_segment_kernel(
             kind, planes, table, need, 0.3, kw)
+        vs_exact = None
+        if held_against_exact(kind, kw, live=False):
+            vs_exact = rel_err(got, lane_exact_plain(kind, planes, table,
+                                                     need, 0.3, kw))
         emit("segkernel", variant=label, Cp=SYNTH_CP, Rc=SEG_RC,
              segments=int(table[3].sum()),
              sublights=sublights(table, 0.3) if kind == "discrete" else None,
              max_rel_err=err, max_abs_err=abs_err, tol=RTOL_SEGMENT, ms=ms,
-             plain_ms=plain_ms)
+             plain_ms=plain_ms, vs_exact_plain_max_rel_err=vs_exact)
         if not err <= RTOL_SEGMENT:
             raise AssertionError(f"segment kernel {label} vs plain: rel err "
                                  f"{err:.3g} > {RTOL_SEGMENT:g}")
+        check_vs_exact(f"segment kernel {label}", vs_exact)
     gs.launches.update(n0)  # comparison launches are not main-path launches
     del planes
     torch.cuda.empty_cache()
@@ -696,10 +737,9 @@ def phase_segment_shapes(r, algo_name: str, mode: str, tier: str, rule: str):
         kind, full, segs, band.lane_need, step, kw)
     gs.launches.update(n0)  # comparison launches are not main-path launches
     vs_exact = None
-    if kind == "discrete" and kw["paired"]:  # the paired tier against exact
-        vs_exact = rel_err(got, gs.gather_segments_discrete_lanes_reference(
-            *full, *segs, step, lane_need=band.lane_need,
-            sphere_radius=kw["sphere_radius"], max_elems=PLAIN_ELEMS))
+    if held_against_exact(kind, kw):  # the paired tier against exact
+        vs_exact = rel_err(got, lane_exact_plain(kind, full, segs,
+                                                 band.lane_need, step, kw))
     del got
     variant = variant_of(algo_name, mode, rule)
     per_sample = ops_per_sample(variant, segs=segs, step=step,
@@ -727,10 +767,7 @@ def phase_segment_shapes(r, algo_name: str, mode: str, tier: str, rule: str):
                              f"plain at live shapes: rel err {err:.3g} "
                              f"(slice), {full_err:.3g} (whole) > "
                              f"{RTOL_SEGMENT:g}")
-    if vs_exact is not None and not vs_exact <= RTOL_PAIRED:
-        raise AssertionError(f"{algo_name} discrete paired vs the exact "
-                             f"plain version: rel err {vs_exact:.3g} > "
-                             f"{RTOL_PAIRED:g}")
+    check_vs_exact(f"{algo_name} {mode}", vs_exact)
     return dict(max_abs_err=max(abs_err, full_abs), ms=full_ms,
                 plain_ms=full_plain_ms, bound_ms=full_bound_ms,
                 bound_by=full_bound_by, library_ms=None)
@@ -749,6 +786,18 @@ def slot_variants():
             "analytic[vrl", "segment_analytic[vrl").replace(
             "analytic[vbl", "segment_sphere[vbl"), kind, kw))
     return out
+
+
+def slot_exact_plain(kind, planes, segs, step, kw):
+    """The exact plain version of a slot segment kernel's call."""
+    from volumerenderer_tpu_torch.ops.kernels import gather_vpu as gv
+
+    if kind == "discrete":
+        return gv.gather_segments_discrete_reference(
+            *planes, *segs, step, sphere_radius=kw["sphere_radius"],
+            max_elems=PLAIN_ELEMS)
+    return gv.gather_segments_analytic_reference(
+        *planes, *segs, max_elems=PLAIN_ELEMS // 16)
 
 
 def run_slot_kernel(kind, planes, segs, lights, step, kw, reps=3):
@@ -789,15 +838,21 @@ def phase_slot_kernel():
     n0 = dict(gv.launches)
     zero = float((planes[3] == 0).double().mean())
     for label, kind, kw in slot_variants():
-        err, abs_err, ms, plain_ms, _ = run_slot_kernel(
+        err, abs_err, ms, plain_ms, got = run_slot_kernel(
             kind, planes, segs, lights, 0.3, kw)
+        vs_exact = None
+        if held_against_exact(kind, kw, live=False):
+            vs_exact = rel_err(got, slot_exact_plain(kind, planes, segs, 0.3,
+                                                     kw))
         tol = slot_tol(kind, kw)
         emit("slotkernel", variant=label, R=SYNTH_CP, C=SEG_RC,
              zero_weight_share=zero, max_rel_err=err, max_abs_err=abs_err,
-             tol=tol, ms=ms, plain_ms=plain_ms)
+             tol=tol, ms=ms, plain_ms=plain_ms,
+             vs_exact_plain_max_rel_err=vs_exact)
         if not err <= tol:
             raise AssertionError(f"slot kernel {label} vs plain: rel err "
                                  f"{err:.3g} > {tol:g}")
+        check_vs_exact(f"slot kernel {label}", vs_exact)
     gv.launches.update(n0)  # comparison launches are not main-path launches
     del planes
     torch.cuda.empty_cache()
@@ -957,10 +1012,8 @@ def phase_slot_shapes(r, algo_name, tier, mode, seg_tier, rule):
         kind, full, segs, light_args, step, kw)
     gv.launches.update(n0)  # comparison launches are not main-path launches
     vs_exact = None
-    if kind == "discrete" and kw["paired"]:  # the paired tier against exact
-        vs_exact = rel_err(got, gv.gather_segments_discrete_reference(
-            *full, *segs, step, sphere_radius=kw["sphere_radius"],
-            max_elems=PLAIN_ELEMS))
+    if held_against_exact(kind, kw):  # the paired tier against exact
+        vs_exact = rel_err(got, slot_exact_plain(kind, full, segs, step, kw))
     del got
     tol = slot_tol(kind, kw)
     bound_ms, bound_by = slot_bound(planes[3], per_sample, table, once)
@@ -981,9 +1034,7 @@ def phase_slot_shapes(r, algo_name, tier, mode, seg_tier, rule):
         raise AssertionError(f"{key} vs plain at the live shapes: rel err "
                              f"{err:.3g} (slice), {full_err:.3g} (whole) > "
                              f"{tol:g}")
-    if vs_exact is not None and not vs_exact <= RTOL_PAIRED:
-        raise AssertionError(f"{key} paired vs the exact plain version: rel "
-                             f"err {vs_exact:.3g} > {RTOL_PAIRED:g}")
+    check_vs_exact(key, vs_exact)
     return dict(max_abs_err=max(abs_err, full_abs), ms=full_ms,
                 plain_ms=full_plain_ms, bound_ms=full_bound_ms,
                 bound_by=full_bound_by, library_ms=None)
@@ -1412,11 +1463,11 @@ def main() -> int:
                  f"{tier if key == 'vpu' else seg_tier}]", route="cuda",
             source="volumerenderer_tpu_torch/csrc/gather_vpu.cu",
             replaces=REPLACES[key], launches=launches, **v))
-    for variant, label in (("point", MANY_RUNS[0][0]),
-                           ("sphere", MANY_RUNS[1][0])):
+    for label, algo_name, _, _ in MANY_RUNS:
         launches, v = many_runs[label]
+        variant = "sphere" if algo_name in ("SPHERE", "BEAM") else "point"
         kernels.append(dict(
-            name=f"gather_many[{variant},exact]", route="cuda",
+            name=f"gather_many[{variant},exact] {label}", route="cuda",
             source="volumerenderer_tpu_torch/csrc/gather_many.cu",
             replaces=REPLACES["many"], launches=launches, **v))
     print(smi, flush=True)

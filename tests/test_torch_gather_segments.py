@@ -386,6 +386,65 @@ def test_wrappers_dispatch_and_validation(case):
                                    fn(*args, *extra).numpy(), rtol=2e-6)
 
 
+def test_analytic_lanes_wrapper_refuses_2_31_samples():
+    """The lane analytic kernel runs the live-sample loop over the Cp x Rc
+    planes, which indexes samples in int32: Cp x Rc >= 2^31 is refused, one
+    lane fewer passes that check and then meets the device check (meta
+    tensors run nowhere)."""
+    segs = (torch.zeros(L, 3, device="meta"), torch.ones(L, 3, device="meta"),
+            torch.ones(L, device="meta"),
+            torch.ones(L, dtype=torch.bool, device="meta"))
+
+    def call(rc, radius):
+        planes = [torch.empty((2**16, rc), device="meta") for _ in range(4)]
+        need = torch.zeros(rc, dtype=torch.int32, device="meta")
+        return tseg.gather_segments_analytic_lanes(
+            *planes, *segs, sphere_radius=radius, lane_need=need)
+
+    for radius in (None, RADIUS):
+        with pytest.raises(ValueError, match="fewer than 2\\^31"):
+            call(2**15, radius)
+        with pytest.raises(ValueError, match="unsupported device"):
+            call(2**15 - 1, radius)
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["exact", "paired"])
+@pytest.mark.parametrize("name,radius,rule", ANALYTIC,
+                         ids=[a[0] for a in ANALYTIC])
+def test_analytic_plain_sums_in_column_order(name, radius, rule, paired):
+    """The plain analytic version adds a sample's terms one column at a time
+    in the kernel's order (segment by segment; paired VRL and closed VBL:
+    each pair's parts in turn) and a lane's samples in row order, as the
+    kernel does: bit for bit against those sums written out in numpy, one
+    term at a time, with the plain version cut into several sample
+    chunks."""
+    px, py, pz, w, pf, pt, inten, valid, need = scene()
+    args = tuple(map(T, (px, py, pz, w, pf, pt, inten, valid)))
+    u, length, ii, start, count = tseg.analytic_cols(*args[4:])
+    s0, c0 = tseg._light_range(start, count, L)
+    rad = None if radius is None else tseg.f32(radius)
+    nodes = None if radius is None else sm.effective_quad_nodes(rule, 8)
+    use = np.arange(CP)[:, None] < need[None, :]
+    x, y, z = (T(p[use])[:, None] for p in (px, py, pz))
+    terms = tseg._analytic_terms(x, y, z, (args[4], u, length, ii), s0, c0,
+                                 rad, nodes, rule, paired).numpy()
+    acc = np.zeros(terms.shape[0], np.float32)
+    for t in range(terms.shape[1]):
+        acc = acc + terms[:, t]
+    full = np.zeros((CP, RC), np.float32)
+    full[use] = acc
+    lane_terms = np.where(use, w * full, np.float32(0.0))
+    want = np.zeros(RC, np.float32)
+    for j in range(CP):
+        want = want + lane_terms[j]
+    got = tseg.gather_segments_analytic_lanes_reference(
+        *args, sphere_radius=radius, quad_nodes=8, quad_rule=rule,
+        lane_need=T(need), paired=paired, max_elems=1 << 14)
+    assert terms.shape[1] >= c0 == 5 and x.shape[0] > (1 << 14) // c0
+    assert np.count_nonzero(want) > RC // 2
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("kind", ["discrete", "analytic"])
 def test_empty_ranges_give_zero(case, kind):
     """No valid segment, and an all-miss band (Cp = 0): zeros."""

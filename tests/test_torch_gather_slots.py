@@ -296,17 +296,18 @@ def test_empty_ranges_give_zero(case, kind):
     assert out.shape == (R, C) and not out.any()
 
 
-@pytest.mark.parametrize("kind", ["discrete", "vbl"])
+@pytest.mark.parametrize("kind", ["discrete", "vbl", "vrl"])
 def test_live_sample_wrappers_refuse_2_31_samples(kind):
-    """The discrete and VBL slot kernels index samples in int32: planes of
-    2^31 samples or more are refused on every device, one sample fewer
-    passes that check (and then meets the device check: meta tensors run
-    nowhere).  The VRL kernel has no such limit."""
+    """The discrete, VBL and VRL slot kernels all run the live-sample loop,
+    which indexes samples in int32: planes of 2^31 samples or more are
+    refused on every device, one sample fewer passes that check (and then
+    meets the device check: meta tensors run nowhere)."""
     segs = (torch.zeros(8, 3, device="meta"), torch.ones(8, 3, device="meta"),
             torch.ones(8, device="meta"),
             torch.ones(8, dtype=torch.bool, device="meta"))
+    radius = None if kind == "vrl" else RADIUS
 
-    def call(shape, radius=RADIUS):
+    def call(shape):
         planes = [torch.empty(shape, device="meta") for _ in range(4)]
         if kind == "discrete":
             return tvpu.gather_segments_discrete(*planes, *segs, STEP,
@@ -319,6 +320,3 @@ def test_live_sample_wrappers_refuse_2_31_samples(kind):
             call(shape)
     with pytest.raises(ValueError, match="unsupported device"):
         call((2**31 - 1, 1))
-    if kind == "vbl":
-        with pytest.raises(ValueError, match="unsupported device"):
-            call((2**16, 2**15), radius=None)

@@ -19,13 +19,16 @@ import torch
 from volumerenderer_tpu_torch.ops.kernels import gather_segments as tseg
 
 CP, RC, STEP, RADIUS = 24, 2048, 0.3, 0.25
+ANALYTIC = [dict(sphere_radius=r, quad_rule=rule, paired=p)
+            for r, rule in ((None, "midpoint"), (RADIUS, "midpoint"),
+                            (RADIUS, "tangent"), (RADIUS, "closed"))
+            for p in (False, True)]
+ANALYTIC_IDS = [f"{v}_{t}" for v in ("vrl", "midpoint", "tangent", "closed")
+                for t in ("exact", "paired")]
 VARIANTS = (
     [("discrete", dict(sphere_radius=r, paired=p))
      for r in (None, RADIUS) for p in (False, True)]
-    + [("analytic", dict(sphere_radius=r, quad_rule=rule, paired=p))
-       for r, rule in ((None, "midpoint"), (RADIUS, "midpoint"),
-                       (RADIUS, "tangent"), (RADIUS, "closed"))
-       for p in (False, True)]
+    + [("analytic", kw) for kw in ANALYTIC]
 )
 
 
@@ -84,6 +87,18 @@ def test_cuda_kernel_matches_plain_version(kind, kw):
                                rtol=2e-5, atol=0)
 
 
+def chunked_segments():
+    """2,500 short segments on the card, valid from 3: 2,497, more than one
+    chunk of 1,024 and an odd count (the paired forms' tail)."""
+    rs = np.random.RandomState(6)
+    L = 2500
+    pf = (rs.randn(L, 3) * 8 + 15).astype(np.float32)
+    pt = pf + (rs.randn(L, 3) * 0.6).astype(np.float32)
+    inten = (rs.rand(L) * 30).astype(np.float32)
+    valid = np.arange(L) >= 3
+    return [torch.as_tensor(a).cuda() for a in (pf, pt, inten, valid)]
+
+
 @pytest.mark.gpu
 def test_cuda_kernels_take_more_than_one_chunk():
     """More than 1024 segments: the kernels re-stage the segment table for
@@ -91,14 +106,7 @@ def test_cuda_kernels_take_more_than_one_chunk():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
     arrays, need = inputs()
-    rs = np.random.RandomState(6)
-    L = 2500
-    pf = (rs.randn(L, 3) * 8 + 15).astype(np.float32)
-    pt = pf + (rs.randn(L, 3) * 0.6).astype(np.float32)
-    inten = (rs.rand(L) * 30).astype(np.float32)
-    valid = np.arange(L) >= 3
-    args = [torch.as_tensor(a).cuda()
-            for a in arrays[:4] + [pf, pt, inten, valid]]
+    args = [torch.as_tensor(a).cuda() for a in arrays[:4]] + chunked_segments()
     need = torch.as_tensor(need).cuda()
     for kw in (dict(sphere_radius=RADIUS, paired=False),
                dict(sphere_radius=None, paired=True)):
@@ -190,3 +198,37 @@ def test_cuda_discrete_kernel_without_sublights(kw):
             *args[:7], valid, STEP, lane_need=need, **kw)
         torch.cuda.synchronize()
         assert got.shape == (RC,) and not got.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("segments", ["one_chunk", "three_chunks"])
+@pytest.mark.parametrize("kw", ANALYTIC, ids=ANALYTIC_IDS)
+def test_cuda_analytic_kernel_on_the_live_sample_loop(kw, segments):
+    """The lane analytic kernel on the live-sample loop, each variant and
+    tier against its plain version at rtol 2e-5 (paired VRL also against
+    the exact plain version at 3e-5): lane needs below Cp on most lanes
+    (every need 0..CP), a third of the weights zero inside the needs, and
+    a table of one chunk (the staging table, segments up to 150 long) or
+    of 2,497 segments (three chunks, an odd count)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    args, need = staging_inputs(ONE_STAGE)
+    if segments == "three_chunks":
+        args = args[:4] + chunked_segments()
+    assert float((need < CP).double().mean()) > 0.9
+    n0 = tseg.launches["analytic"]
+    got = tseg.gather_segments_analytic_lanes(*args, lane_need=need, **kw)
+    ref = tseg.gather_segments_analytic_lanes_reference(*args,
+                                                        lane_need=need, **kw)
+    torch.cuda.synchronize()
+    assert tseg.launches["analytic"] == n0 + 1
+    lit = (args[3] != 0).any(0)  # lanes with a nonzero weight
+    assert torch.isfinite(got).all()
+    assert not got[~lit].any() and (got[lit] > 0).all()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=2e-5, atol=0)
+    if kw["sphere_radius"] is None and kw["paired"]:
+        exact = tseg.gather_segments_analytic_lanes_reference(
+            *args, lane_need=need, sphere_radius=None)
+        np.testing.assert_allclose(got.cpu().numpy(), exact.cpu().numpy(),
+                                   rtol=3e-5, atol=0)

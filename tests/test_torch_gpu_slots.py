@@ -21,8 +21,8 @@ import pytest
 import torch
 
 from test_torch_gpu_segments import (
-    DISCRETE, ONE_STAGE, RADIUS, RC, STEP, TWO_STAGES, inputs,
-    staging_inputs,
+    DISCRETE, ONE_STAGE, RADIUS, RC, STEP, TWO_STAGES, chunked_segments,
+    inputs, staging_inputs,
 )
 from volumerenderer_tpu_torch.ops.kernels import gather_vpu as tvpu
 
@@ -93,18 +93,6 @@ def test_cuda_slot_kernel_matches_plain_version(kind, kw):
                                rtol=2e-5, atol=0)
 
 
-def chunked_segments():
-    """2,500 short segments, valid from 3: 2,497, more than one chunk of
-    1,024 and an odd count (the paired closed rule's tail)."""
-    rs = np.random.RandomState(6)
-    L = 2500
-    pf = (rs.randn(L, 3) * 8 + 15).astype(np.float32)
-    pt = pf + (rs.randn(L, 3) * 0.6).astype(np.float32)
-    inten = (rs.rand(L) * 30).astype(np.float32)
-    valid = np.arange(L) >= 3
-    return [torch.as_tensor(a).cuda() for a in (pf, pt, inten, valid)]
-
-
 @pytest.mark.gpu
 def test_cuda_slot_kernels_take_more_than_one_chunk():
     """More than 1024 segments: each sample keeps one running sum across
@@ -142,6 +130,50 @@ def test_cuda_slot_vbl_kernel_takes_more_than_one_chunk(rule, paired):
     assert not got[planes[3] == 0].any() and got.abs().max() > 0
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                rtol=2e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paired", [False, True], ids=["exact", "paired"])
+@pytest.mark.parametrize("case", ["three_chunks", "no_segments", "all_dead",
+                                  "ragged"])
+def test_cuda_slot_vrl_kernel_on_the_live_sample_loop(case, paired):
+    """The slots VRL kernel on the live-sample loop against its plain
+    version at rtol 2e-5 (paired also against the exact plain version at
+    3e-5): 2,497 segments (three chunks, an odd count for the paired
+    tier's tail), no valid segment, every sample dead, and 24 x 2043
+    samples (N not a multiple of the 512-sample span)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    planes, segs, _ = slot_args()
+    if case == "three_chunks":
+        segs = chunked_segments()
+    elif case == "no_segments":
+        segs = segs[:3] + [torch.zeros_like(segs[3])]
+    elif case == "all_dead":
+        planes = planes[:3] + [torch.zeros_like(planes[3])]
+    else:
+        planes = [p[:, :RC - 5].contiguous() for p in planes]
+        assert planes[0].numel() % 512 != 0
+    kw = dict(sphere_radius=None, paired=paired)
+    n0 = tvpu.launches["segment_analytic"]
+    got = run("analytic", planes, segs, None, kw, plain=False)
+    ref = run("analytic", planes, segs, None, kw, plain=True)
+    torch.cuda.synchronize()
+    assert tvpu.launches["segment_analytic"] == n0 + 1
+    live = planes[3] != 0
+    assert got.shape == planes[0].shape and torch.isfinite(got).all()
+    assert not got[~live].any()
+    if case in ("no_segments", "all_dead"):
+        assert not got.any()
+    else:
+        assert (got[live] > 0).all()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=2e-5, atol=0)
+    if paired:
+        exact = run("analytic", planes, segs, None,
+                    dict(sphere_radius=None, paired=False), plain=True)
+        np.testing.assert_allclose(got.cpu().numpy(), exact.cpu().numpy(),
+                                   rtol=3e-5, atol=0)
 
 
 DISCRETE_IDS = ["ray_exact", "ray_paired", "beam_exact", "beam_paired"]

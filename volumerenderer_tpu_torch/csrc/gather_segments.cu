@@ -43,19 +43,18 @@
 // (32 KB, the bench config's 1,500-1,800 sub-lights), in chunks for every
 // batch of samples beyond that.
 //
-// analytic_kernel: one thread per lane, samples streamed from the (Cp, Rc)
-// planes (a warp's loads of row j are contiguous), the segment table (ax,
-// ay, az, ux, uy, uz, len, ii: 32 B) staged in shared memory in chunks of
-// 1024 segments and read as broadcasts, the sums in registers.  Each thread
-// stops at its own lane_need.  When the segments span more than one chunk,
-// the block walks its busiest lane's samples and re-stages the chunks for
-// each sample, so that each sample keeps one running sum in the reference
-// order.
+// analytic_kernel (gather_terms.cuh, shared with the slots VRL and VBL
+// kernels of gather_vpu.cu) runs the same loop with lane_need: the segment
+// table (ax, ay, az, ux, uy, uz, len, ii: 32 B) staged in shared memory in
+// chunks of 1024 segments and read as broadcasts, each live sample's
+// integral summed in segment order and its w * sum written to the scratch
+// plane, then lane_sum_kernel.  A used sample of zero weight costs nothing
+// (a thread per lane evaluated it and added w * sum = 0).
 //
 // The per-(sample, segment) terms live in gather_terms.cuh, shared with
 // the slot kernels of gather_vpu.cu; the header states their rounding rules
-// (reference term order, no FMA contraction, IEEE divides and roots,
-// apart from the staged sums' two stated levers).
+// (reference term order, no FMA contraction, IEEE divides and roots, apart
+// from the stated levers of the staged sums and of the VRL term).
 
 #include "gather_terms.cuh"
 
@@ -63,60 +62,11 @@ namespace {
 
 using namespace vr;
 
-// ---- the shared lane loop ----
+// ---- both kernels in two passes ----
 
-// Walks each lane's samples against the segments [start, start + count)
-// staged in chunks; body(n, c0, x, y, z, acc) adds chunk c0's n segments to
-// a sample's running sum.  Writes out[lane] = sum_j w[j] * acc_j.
-template <class Body>
-__device__ __forceinline__ void lane_loop(
-    const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ pz, const float* __restrict__ w,
-    const int* __restrict__ lane_need, const float* __restrict__ table,
-    int start, int count, int Cp, int Rc, float* __restrict__ out,
-    float4* s_a, float4* s_c, const Body& body) {
-  __shared__ int s_block_need;
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
-  const int need = lane < Rc ? min(lane_need[lane], Cp) : 0;
-  const int nchunk = (count + kChunk - 1) / kChunk;  // uniform in the block
-  int loop_need = nchunk > 0 ? need : 0;
-  if (nchunk == 1) {
-    stage_segments(table, start, count, s_a, s_c);
-    __syncthreads();
-  } else if (nchunk > 1) {
-    if (threadIdx.x == 0) s_block_need = 0;
-    __syncthreads();
-    atomicMax(&s_block_need, need);
-    __syncthreads();
-    loop_need = s_block_need;
-  }
-  float total = 0.0f;
-  for (int j = 0; j < loop_need; ++j) {
-    const bool live = j < need;
-    const size_t o = static_cast<size_t>(j) * Rc + lane;
-    const float x = live ? px[o] : 0.0f;
-    const float y = live ? py[o] : 0.0f;
-    const float z = live ? pz[o] : 0.0f;
-    float acc = 0.0f;
-    for (int c = 0; c < nchunk; ++c) {
-      const int c0 = c * kChunk;
-      const int n = min(kChunk, count - c0);
-      if (nchunk > 1) {
-        __syncthreads();  // the previous chunk is no longer read
-        stage_segments(table, start + c0, n, s_a, s_c);
-        __syncthreads();
-      }
-      if (live) acc = body(n, c0, x, y, z, acc);
-    }
-    if (live) total = total + w[o] * acc;
-  }
-  if (lane < Rc) out[lane] = total;
-}
-
-// ---- kernel 2: discrete sub-lights ----
-
-// Pass 1 is gather_terms.cuh's discrete_kernel with lane_need, into a
-// (Cp, Rc) scratch plane of terms[j, lane] = w * (the sample's sum).
+// Pass 1 is gather_terms.cuh's discrete_kernel or analytic_kernel with
+// lane_need, into a (Cp, Rc) scratch plane of terms[j, lane] = w * (the
+// sample's sum).
 
 // Pass 2: out[lane] = terms[0, lane] + terms[1, lane] + ... over
 // j < lane_need, in row order, one thread a lane: the reference's running
@@ -134,47 +84,20 @@ __global__ void __launch_bounds__(kThreads) lane_sum_kernel(
   out[lane] = sum;
 }
 
-// ---- kernel 3: analytic segment integrals ----
-
-template <int kVariant, bool kPaired>
-__global__ void __launch_bounds__(kThreads) analytic_kernel(
-    const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ pz, const float* __restrict__ w,
-    const int* __restrict__ lane_need, const float* __restrict__ table,
-    const float* __restrict__ node_tab, const int* __restrict__ meta, int L,
-    int Cp, int Rc, int nodes, float radius, float* __restrict__ out) {
-  __shared__ float4 s_a[kChunk];
-  __shared__ float4 s_c[kChunk];
-  __shared__ float s_nx[kMaxNodes];
-  __shared__ float s_nw[kMaxNodes];
-  const int start = max(meta[0], 0);
-  const int count = max(min(meta[1], L - start), 0);
-  stage_nodes(node_tab, nodes, s_nx, s_nw);
-  __syncthreads();
-  const AnalyticBody<kVariant, kPaired> body{s_a, s_c, s_nx, s_nw,
-                                             nodes, count, radius};
-  lane_loop(px, py, pz, w, lane_need, table, start, count, Cp, Rc, out, s_a,
-            s_c, body);
-}
-
 dim3 grid_of(int Rc) { return dim3((Rc + kThreads - 1) / kThreads); }
 
-template <bool kSphere, bool kPaired>
-int launch_discrete(const float* px, const float* py, const float* pz,
-                    const float* w, const int* lane_need, const float* table,
-                    const int* first, const int* meta, int L, int Cp, int Rc,
-                    float step, float radius, int* next_span, float* terms,
-                    float* out, cudaStream_t s) {
+// Pass 1, `kernel` launched persistent over the N = Cp * Rc samples by
+// `launch(blocks)`, then pass 2.  Returns a CUDA error code.
+template <class Kernel, class Launch>
+int two_passes(Kernel kernel, ResidentBlocks& resident, const int* lane_need,
+               int Cp, int Rc, const float* terms, float* out, cudaStream_t s,
+               Launch launch) {
   const int N = Cp * Rc;
-  static ResidentBlocks resident;
   unsigned blocks = 0;
-  const int err = persistent_blocks(discrete_kernel<kSphere, kPaired>,
-                                    resident, N, &blocks);
+  const int err = persistent_blocks(kernel, resident, N, &blocks);
   if (err != 0) return err;
   if (N > 0) {
-    discrete_kernel<kSphere, kPaired><<<blocks, kThreads, 0, s>>>(
-        px, py, pz, w, lane_need, table, first, meta, L, Rc, N, step, radius,
-        next_span, terms);
+    launch(blocks);
     const cudaError_t launched = cudaGetLastError();
     if (launched != cudaSuccess) return static_cast<int>(launched);
   }
@@ -183,15 +106,36 @@ int launch_discrete(const float* px, const float* py, const float* pz,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kSphere, bool kPaired>
+int launch_discrete(const float* px, const float* py, const float* pz,
+                    const float* w, const int* lane_need, const float* table,
+                    const int* first, const int* meta, int L, int Cp, int Rc,
+                    float step, float radius, int* next_span, float* terms,
+                    float* out, cudaStream_t s) {
+  static ResidentBlocks resident;
+  return two_passes(
+      discrete_kernel<kSphere, kPaired>, resident, lane_need, Cp, Rc, terms,
+      out, s, [&](unsigned blocks) {
+        discrete_kernel<kSphere, kPaired><<<blocks, kThreads, 0, s>>>(
+            px, py, pz, w, lane_need, table, first, meta, L, Rc, Cp * Rc,
+            step, radius, next_span, terms);
+      });
+}
+
 template <int kVariant, bool kPaired>
-void launch_analytic(const float* px, const float* py, const float* pz,
-                     const float* w, const int* lane_need, const float* table,
-                     const float* node_tab, const int* meta, int L, int Cp,
-                     int Rc, int nodes, float radius, float* out,
-                     cudaStream_t s) {
-  analytic_kernel<kVariant, kPaired><<<grid_of(Rc), kThreads, 0, s>>>(
-      px, py, pz, w, lane_need, table, node_tab, meta, L, Cp, Rc, nodes,
-      radius, out);
+int launch_analytic(const float* px, const float* py, const float* pz,
+                    const float* w, const int* lane_need, const float* table,
+                    const float* node_tab, const int* meta, int L, int Cp,
+                    int Rc, int nodes, float radius, int* next_span,
+                    float* terms, float* out, cudaStream_t s) {
+  static ResidentBlocks resident;
+  return two_passes(
+      analytic_kernel<kVariant, kPaired>, resident, lane_need, Cp, Rc, terms,
+      out, s, [&](unsigned blocks) {
+        analytic_kernel<kVariant, kPaired><<<blocks, kThreads, 0, s>>>(
+            px, py, pz, w, lane_need, table, node_tab, meta, L, Rc, Cp * Rc,
+            nodes, radius, next_span, terms);
+      });
 }
 
 }  // namespace
@@ -228,44 +172,41 @@ extern "C" int vr_gather_segments_discrete(
 
 // c6 = the segment length; ii = I / (4 pi L).  node_tab: (2, max(nodes, 1))
 // f32 node fractions / Gauss-Legendre nodes, then weights; nodes <= 1024.
-// variant: 0 VRL, 1 VBL midpoint, 2 VBL tangent, 3 VBL closed.
+// variant: 0 VRL, 1 VBL midpoint, 2 VBL tangent, 3 VBL closed.  meta:
+// int32[2] = (start, count); next_span: one int32 set to 0; terms: (Cp, Rc)
+// f32 scratch.  Cp * Rc < 2^31.
 extern "C" int vr_gather_segments_analytic(
     const float* px, const float* py, const float* pz, const float* w,
     const int* lane_need, const float* table, const float* node_tab,
     const int* meta, int L, int Cp, int Rc, int nodes, float radius,
-    int variant, int paired, float* out, void* stream) {
+    int variant, int paired, int* next_span, float* terms, float* out,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nodes < 0 || nodes > kMaxNodes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
 #define VR_ANALYTIC(V)                                                      \
-  do {                                                                      \
-    if (paired) {                                                           \
-      launch_analytic<V, true>(px, py, pz, w, lane_need, table, node_tab,   \
-                               meta, L, Cp, Rc, nodes, radius, out, s);     \
-    } else {                                                                \
-      launch_analytic<V, false>(px, py, pz, w, lane_need, table, node_tab,  \
-                                meta, L, Cp, Rc, nodes, radius, out, s);    \
-    }                                                                       \
-  } while (0)
+  return paired ? launch_analytic<V, true>(px, py, pz, w, lane_need, table, \
+                                           node_tab, meta, L, Cp, Rc,       \
+                                           nodes, radius, next_span, terms, \
+                                           out, s)                          \
+                : launch_analytic<V, false>(px, py, pz, w, lane_need,       \
+                                            table, node_tab, meta, L, Cp,   \
+                                            Rc, nodes, radius, next_span,   \
+                                            terms, out, s)
   switch (variant) {
     case kVrl:
       VR_ANALYTIC(kVrl);
-      break;
     case kMidpoint:
       VR_ANALYTIC(kMidpoint);
-      break;
     case kTangent:
       VR_ANALYTIC(kTangent);
-      break;
     case kClosed:
       VR_ANALYTIC(kClosed);
-      break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef VR_ANALYTIC
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* vr_segments_error_string(int code) {

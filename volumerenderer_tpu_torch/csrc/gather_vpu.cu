@@ -8,12 +8,11 @@
 //     `_segment_discrete_kernel`: the uncapped sub-light walk of each
 //     Ray/VRL (point) or Beam/VBL (sphere) segment, exact or paired: the
 //     lane layout's kernel without its lane_need;
-//   * segment_kernel          <- `gather_segments_analytic` ->
+//   * analytic_kernel (gather_terms.cuh) <- `gather_segments_analytic` ->
 //     `_segment_kernel`: the closed-form VRL line integral, exact or paired
-//     (two segments per trip);
-//   * segment_sphere_kernel   <- `gather_segments_analytic` (sphere) ->
-//     `_segment_sphere_kernel`: the VBL quadrature under the midpoint,
-//     tangent or closed rule, exact or paired.
+//     (two segments per trip), and (sphere) `_segment_sphere_kernel`: the
+//     VBL quadrature under the midpoint, tangent or closed rule, exact or
+//     paired; the lane layout's kernel without its lane_need.
 // The terms are those of the lane kernels (gather_terms.cuh), so both
 // layouts evaluate each (sample, light) and (sample, segment) term the same.
 //
@@ -36,11 +35,10 @@
 // segment or every segment; the operands stay on chip (tables in shared
 // memory, sums in registers).  Most samples of a ViewCache are dead (~92%
 // at the bench config: rays that miss the volume, samples past the
-// transmittance cutoff), so the two costliest kernels, the discrete and the
-// VBL one, run gather_terms.cuh's persistent live_sample_loop: blocks that
-// take only live samples, kSamples a thread.  The point/sphere and the VRL
-// kernels still give one thread to each sample (slot_loop), and a block of
-// 256 dead samples returns at once.
+// transmittance cutoff), so the segment kernels run gather_terms.cuh's
+// persistent live_sample_loop: blocks that take only live samples, kSamples
+// a thread.  The point/sphere kernel still gives one thread to each sample
+// (slot_loop), and a block of 256 dead samples returns at once.
 
 #include "gather_terms.cuh"
 
@@ -48,7 +46,7 @@ namespace {
 
 using namespace vr;
 
-// The one-thread-a-sample loop of vpu_kernel and segment_kernel:
+// The one-thread-a-sample loop of vpu_kernel:
 // stage(c0, n) stages chunk c0's n entries; body(n, c0, x, y, z, acc) adds
 // them to a sample's running sum.
 template <class Body, class Stage>
@@ -89,16 +87,6 @@ struct LightStage {
   }
 };
 
-struct SegmentStage {
-  const float* table;
-  int start;
-  float4* s_a;
-  float4* s_c;
-  __device__ __forceinline__ void operator()(int c0, int n) const {
-    stage_segments(table, start + c0, n, s_a, s_c);
-  }
-};
-
 // The valid range [start, start + count) of L slots, read on the device.
 __device__ __forceinline__ void light_range(const int* __restrict__ meta,
                                             int L, int* start, int* count) {
@@ -123,121 +111,6 @@ __global__ void __launch_bounds__(kThreads) vpu_kernel(
   const PointBody<kSphere, kPaired> body{s_light, radius, count};
   slot_loop(px, py, pz, w, N, span, out, body,
             LightStage{lpos, li, L, start, s_light});
-}
-
-// ---- gather_vpu._segment_kernel (VRL) ----
-
-template <int kVariant, bool kPaired>
-__device__ __forceinline__ void analytic_slots(
-    const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ pz, const float* __restrict__ w,
-    const float* __restrict__ table, const float* __restrict__ node_tab,
-    const int* __restrict__ meta, int L, long long N, int nodes, float radius,
-    float* __restrict__ out, float4* s_a, float4* s_c, float* s_nx,
-    float* s_nw) {
-  int start, count;
-  light_range(meta, L, &start, &count);
-  stage_nodes(node_tab, nodes, s_nx, s_nw);  // slot_loop synchronises
-  const AnalyticBody<kVariant, kPaired> body{s_a, s_c, s_nx, s_nw,
-                                             nodes, count, radius};
-  slot_loop(px, py, pz, w, N, count, out, body,
-            SegmentStage{table, start, s_a, s_c});
-}
-
-template <bool kPaired>
-__global__ void __launch_bounds__(kThreads) segment_kernel(
-    const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ pz, const float* __restrict__ w,
-    const float* __restrict__ table, const int* __restrict__ meta, int L,
-    long long N, float* __restrict__ out) {
-  __shared__ float4 s_a[kChunk];
-  __shared__ float4 s_c[kChunk];
-  analytic_slots<kVrl, kPaired>(px, py, pz, w, table, nullptr, meta, L, N, 0,
-                                0.0f, out, s_a, s_c, nullptr, nullptr);
-}
-
-// ---- gather_vpu._segment_sphere_kernel (VBL) ----
-
-// The segment table for live_sample_loop, in chunks of kChunk segments (an
-// even count, so no pair of the paired closed rule straddles two chunks).
-// c0 is the first index of the chunk last staged, which AnalyticBody reads.
-struct SegmentChunks {
-  const float* table;
-  int start, count;
-  float4* s_a;
-  float4* s_c;
-  int c0, cursor;
-
-  __device__ __forceinline__ void begin() { cursor = 0; }
-  __device__ __forceinline__ bool done() const { return cursor >= count; }
-  __device__ __forceinline__ int next() {
-    c0 = cursor;
-    const int n = min(kChunk, count - c0);
-    stage_segments(table, start + c0, n, s_a, s_c);
-    cursor += n;
-    return n;
-  }
-};
-
-// a[s] for a runtime s, and a[s] = v, by selects: the arrays stay in
-// registers where an index that is not a constant would put them in local
-// memory.
-__device__ __forceinline__ float pick(const float (&a)[kSamples], int s) {
-  float v = a[0];
-#pragma unroll
-  for (int i = 1; i < kSamples; ++i) v = s == i ? a[i] : v;
-  return v;
-}
-
-__device__ __forceinline__ void put(float (&a)[kSamples], int s, float v) {
-#pragma unroll
-  for (int i = 0; i < kSamples; ++i) a[i] = s == i ? v : a[i];
-}
-
-// A chunk of segments added to each of a thread's kSamples samples, one
-// sample after another (the loop is not unrolled, so one AnalyticBody's
-// temporaries are live at a time): the body, the order and so the bits of
-// the one-thread-a-sample kernel.
-template <int kVariant, bool kPaired>
-struct AnalyticSums {
-  AnalyticBody<kVariant, kPaired> body;
-  const SegmentChunks* stage;
-  __device__ __forceinline__ void operator()(
-      int n, const float (&x)[kSamples], const float (&y)[kSamples],
-      const float (&z)[kSamples], float (&acc)[kSamples],
-      float (& /*part*/)[kSamples]) const {
-#pragma unroll 1
-    for (int s = 0; s < kSamples; ++s) {
-      put(acc, s, body(n, stage->c0, pick(x, s), pick(y, s), pick(z, s),
-                       pick(acc, s)));
-    }
-  }
-};
-
-// Shared memory: the segment chunk 32 KB, the nodes 8 KB and the loop's
-// queue ~6.1 KB, under the 48 KB of static shared memory.
-template <int kVariant, bool kPaired>
-__global__ void __launch_bounds__(kThreads) segment_sphere_kernel(
-    const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ pz, const float* __restrict__ w,
-    const float* __restrict__ table, const float* __restrict__ node_tab,
-    const int* __restrict__ meta, int L, int N, int nodes, float radius,
-    int* __restrict__ next_span, float* __restrict__ out) {
-  __shared__ float4 s_a[kChunk];
-  __shared__ float4 s_c[kChunk];
-  __shared__ float s_nx[kMaxNodes];
-  __shared__ float s_nw[kMaxNodes];
-  __shared__ LiveShared sh;
-  int start, count;
-  light_range(meta, L, &start, &count);
-  // Staged once per block; live_sample_loop synchronises after its first
-  // stage, before any sample reads the nodes.
-  stage_nodes(node_tab, nodes, s_nx, s_nw);
-  SegmentChunks stage{table, start, count, s_a, s_c, 0, 0};
-  const AnalyticSums<kVariant, kPaired> sums{
-      {s_a, s_c, s_nx, s_nw, nodes, count, radius}, &stage};
-  live_sample_loop(px, py, pz, w, nullptr, 0, N, next_span, out, stage, sums,
-                   sh);
 }
 
 dim3 blocks_of(long long N) {
@@ -269,27 +142,19 @@ int launch_discrete(const float* px, const float* py, const float* pz,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kPaired>
-void launch_vrl(const float* px, const float* py, const float* pz,
-                const float* w, const float* table, const int* meta, int L,
-                long long N, float* out, cudaStream_t s) {
-  segment_kernel<kPaired><<<blocks_of(N), kThreads, 0, s>>>(
-      px, py, pz, w, table, meta, L, N, out);
-}
-
 template <int kVariant, bool kPaired>
-int launch_sphere(const float* px, const float* py, const float* pz,
-                  const float* w, const float* table, const float* node_tab,
-                  const int* meta, int L, int N, int nodes, float radius,
-                  int* next_span, float* out, cudaStream_t s) {
+int launch_analytic(const float* px, const float* py, const float* pz,
+                    const float* w, const float* table, const float* node_tab,
+                    const int* meta, int L, int N, int nodes, float radius,
+                    int* next_span, float* out, cudaStream_t s) {
   static ResidentBlocks resident;
   unsigned blocks = 0;
-  const int err = persistent_blocks(segment_sphere_kernel<kVariant, kPaired>,
+  const int err = persistent_blocks(analytic_kernel<kVariant, kPaired>,
                                     resident, N, &blocks);
   if (err != 0) return err;
-  segment_sphere_kernel<kVariant, kPaired><<<blocks, kThreads, 0, s>>>(
-      px, py, pz, w, table, node_tab, meta, L, N, nodes, radius, next_span,
-      out);
+  analytic_kernel<kVariant, kPaired><<<blocks, kThreads, 0, s>>>(
+      px, py, pz, w, nullptr, table, node_tab, meta, L, 0, N, nodes, radius,
+      next_span, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -298,9 +163,8 @@ int launch_sphere(const float* px, const float* py, const float* pz,
 // Plain C entry points.  Planes px, py, pz, w and out: N f32 each (the flat
 // (R, C) planes); meta: int32 (start, count, ...) on the device.  Each
 // launches on `stream` and returns a CUDA error code (0: launched).  The
-// point/sphere and VRL kernels take N <= 2^31 * 256; the discrete and VBL
-// kernels N < 2^31, with next_span one int32 set to 0 (the persistent
-// blocks' work counter).
+// point/sphere kernel takes N <= 2^31 * 256; the segment kernels N < 2^31,
+// with next_span one int32 set to 0 (the persistent blocks' work counter).
 
 // lpos: (L, 3) f32; li: (L,) f32 = I / (4 pi); meta: int32[2].
 extern "C" int vr_gather_vpu(const float* px, const float* py,
@@ -360,15 +224,15 @@ extern "C" int vr_gather_vpu_discrete(const float* px, const float* py,
 extern "C" int vr_gather_vpu_vrl(const float* px, const float* py,
                                  const float* pz, const float* w,
                                  const float* table, const int* meta, int L,
-                                 long long N, int paired, float* out,
-                                 void* stream) {
+                                 int N, int paired, int* next_span,
+                                 float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (paired) {
-    launch_vrl<true>(px, py, pz, w, table, meta, L, N, out, s);
-  } else {
-    launch_vrl<false>(px, py, pz, w, table, meta, L, N, out, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return paired ? launch_analytic<kVrl, true>(px, py, pz, w, table, nullptr,
+                                              meta, L, N, 0, 0.0f, next_span,
+                                              out, s)
+                : launch_analytic<kVrl, false>(px, py, pz, w, table, nullptr,
+                                               meta, L, N, 0, 0.0f,
+                                               next_span, out, s);
 }
 
 // table and meta as for vr_gather_vpu_vrl; node_tab: (2, max(nodes, 1)) f32
@@ -386,12 +250,12 @@ extern "C" int vr_gather_vpu_sphere(const float* px, const float* py,
     return static_cast<int>(cudaErrorInvalidValue);
   }
 #define VR_SPHERE(V)                                                        \
-  return paired ? launch_sphere<V, true>(px, py, pz, w, table, node_tab,    \
-                                         meta, L, N, nodes, radius,         \
-                                         next_span, out, s)                 \
-                : launch_sphere<V, false>(px, py, pz, w, table, node_tab,   \
-                                          meta, L, N, nodes, radius,        \
-                                          next_span, out, s)
+  return paired ? launch_analytic<V, true>(px, py, pz, w, table, node_tab,  \
+                                           meta, L, N, nodes, radius,       \
+                                           next_span, out, s)               \
+                : launch_analytic<V, false>(px, py, pz, w, table, node_tab, \
+                                            meta, L, N, nodes, radius,      \
+                                            next_span, out, s)
   switch (variant) {
     case kMidpoint:
       VR_SPHERE(kMidpoint);

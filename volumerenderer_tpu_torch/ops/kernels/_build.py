@@ -22,9 +22,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # -fmad=false: no multiply-add pair is contracted into an FMA, so the
 # exact tier rounds term for term like the reference.  No fast math:
-# divides and square roots stay IEEE.  (The staged sums of
-# csrc/gather_terms.cuh take an explicit FMA and an approximate reciprocal,
-# as that header states.)
+# divides and square roots stay IEEE.  (The staged sums and the closed-form
+# VRL term of csrc/gather_terms.cuh take explicit FMAs and approximate
+# reciprocals and roots, as that header states.)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",

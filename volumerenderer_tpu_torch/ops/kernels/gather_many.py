@@ -31,8 +31,8 @@ import torch.nn.functional as F
 from ..lights import GUARD
 from ..march import f32
 from .gather_lanes import _INV_FOUR_PI
-from .gather_segments import _d2e_bad
-from .gather_vpu import _add_columns, _live_samples, _weighted
+from .gather_segments import _add_columns, _d2e_bad
+from .gather_vpu import _live_samples, _weighted
 
 TILE_L = 256  # light slots per tile flag (gather_kernel.TILE_L)
 launches = {"many": 0}  # kernel launches made by gather_many

@@ -130,6 +130,14 @@ def _lane_sums(use, wm, rad):
     return out
 
 
+def _add_columns(acc, terms):
+    """acc + terms[:, 0] + terms[:, 1] + ..., one column at a time (the
+    kernels' running sum over the segments)."""
+    for t in range(terms.shape[1]):
+        acc = acc + terms[:, t]
+    return acc
+
+
 def _chunks(n: int, per: int, max_elems: int):
     step = max(1, max_elems // max(per, 1))
     for a in range(0, n, step):
@@ -273,7 +281,9 @@ def gather_segments_analytic_lanes_reference(
         sphere_radius=None, quad_nodes: int = 16, quad_rule: str = "midpoint",
         lane_need=None, paired: bool = False,
         max_elems: int = 1 << 22) -> torch.Tensor:
-    """Plain PyTorch version of the analytic kernel, chunked so that each
+    """Plain PyTorch version of the analytic kernel, in its summation
+    order: one running sum per sample over the terms in segment order, then
+    each lane's samples in row order.  Chunked over samples so that each
     (samples, segments) temporary stays under ``max_elems`` elements."""
     if lane_need is None:
         lane_need = lane_need_of(wm)
@@ -292,7 +302,7 @@ def gather_segments_analytic_lanes_reference(
             terms = _analytic_terms(x[a:b, None], y[a:b, None], z[a:b, None],
                                     cols, start, count, radius, nodes,
                                     quad_rule, paired)
-            rad[a:b] = terms.sum(dim=-1)
+            rad[a:b] = _add_columns(rad[a:b], terms)
     return _lane_sums(use, wm, rad)
 
 
@@ -339,7 +349,7 @@ def _lib():
         lib.vr_gather_segments_discrete.argtypes = (
             [p] * 8 + [i, i, i, f, f, i, i, p, p, p, p])
         lib.vr_gather_segments_analytic.argtypes = (
-            [p] * 8 + [i, i, i, i, f, i, i, p, p])
+            [p] * 8 + [i, i, i, i, f, i, i, p, p, p, p])
         lib.vr_gather_segments_discrete.restype = i
         lib.vr_gather_segments_analytic.restype = i
         lib.vr_segments_error_string.argtypes = [i]
@@ -432,7 +442,8 @@ def gather_segments_analytic_lanes(
         px, py, pz, wm, pos_from, pos_to, intensity, valid, *,
         sphere_radius=None, quad_nodes: int = 16, quad_rule: str = "midpoint",
         lane_need=None, paired: bool = False) -> torch.Tensor:
-    """Analytic VRL / quadrature VBL gather over lane planes -> (Rc,) f32."""
+    """Analytic VRL / quadrature VBL gather over lane planes of fewer than
+    2^31 samples -> (Rc,) f32."""
     if quad_rule not in ("midpoint", "tangent", "closed"):
         raise ValueError(f"unknown quadrature rule: {quad_rule!r}")
     if lane_need is None:
@@ -444,6 +455,9 @@ def gather_segments_analytic_lanes(
             px, py, pz, wm, pos_from, pos_to, intensity, valid,
             sphere_radius=sphere_radius, quad_nodes=quad_nodes,
             quad_rule=quad_rule, lane_need=lane_need, paired=paired)
+    if Cp * Rc >= 2**31:
+        raise ValueError(f"gather_segments_analytic: {Cp} x {Rc} samples; "
+                         f"the kernel takes fewer than 2^31")
     if px.device.type != "cuda":
         raise ValueError(f"gather_segments: unsupported device {px.device}")
     rule = None if sphere_radius is None else quad_rule
@@ -460,6 +474,8 @@ def gather_segments_analytic_lanes(
     table = _table(pos_from, u, length, ii)
     meta = _meta(start, count, dev)
     nodes_t = node_table(rule, nodes, dev)
+    next_span = torch.zeros(1, dtype=torch.int32, device=dev)
+    terms = torch.empty((Cp, Rc), dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -467,7 +483,8 @@ def gather_segments_analytic_lanes(
             *_launch_args(px, py, pz, wm, lane_need), table.data_ptr(),
             nodes_t.data_ptr(), meta.data_ptr(), L, Cp, Rc, nodes,
             f32(0.0 if sphere_radius is None else sphere_radius),
-            _VARIANTS[rule], int(paired), out.data_ptr(), stream)
+            _VARIANTS[rule], int(paired), next_span.data_ptr(),
+            terms.data_ptr(), out.data_ptr(), stream)
     _raise_on(lib, err, "gather_segments_analytic")
     launches["analytic"] += 1
     return out

@@ -20,10 +20,10 @@ it so).
 Each wrapper launches csrc/gather_vpu.cu for CUDA tensors and counts the
 launch in ``launches``; for CPU tensors it runs its ``*_reference``, the
 same function in plain PyTorch.  It never sends a CUDA tensor to the plain
-version.  The discrete and the VBL kernels take only live samples through
-a loop that indexes samples in int32, so those two wrappers refuse planes
-of 2^31 samples or more (the 1080p ViewCache holds 298,598,400; a 4K one at
-a march cap of 144, 1.19e9).
+version.  The segment kernels (discrete, VRL, VBL) take only live samples
+through a loop that indexes samples in int32, so those wrappers refuse
+planes of 2^31 samples or more (the 1080p ViewCache holds 298,598,400; a
+4K one at a march cap of 144, 1.19e9).
 """
 
 from __future__ import annotations
@@ -37,9 +37,9 @@ from ..march import f32
 from . import segment_math as sm
 from .gather_lanes import _INV_FOUR_PI, _light_range, _meta
 from .gather_segments import (
-    MAX_NODES, PAIR_BIG, _VARIANTS, _analytic_terms, _chunks, _d2e_bad,
-    _sublight_table, _table, analytic_cols, discrete_cols, node_table,
-    sublight_prefix,
+    MAX_NODES, PAIR_BIG, _VARIANTS, _add_columns, _analytic_terms, _chunks,
+    _d2e_bad, _sublight_table, _table, analytic_cols, discrete_cols,
+    node_table, sublight_prefix,
 )
 
 # Kernel launches made by each wrapper (one key per TPU kernel body).
@@ -63,13 +63,6 @@ def _weighted(wm, idx, w, acc):
     out = torch.zeros_like(wm)
     out.view(-1)[idx] = w * acc
     return out
-
-
-def _add_columns(acc, terms):
-    """acc + terms[:, 0] + terms[:, 1] + ..., one column at a time."""
-    for t in range(terms.shape[1]):
-        acc = acc + terms[:, t]
-    return acc
 
 
 def gather_vpu_reference(px, py, pz, wm, l_pos, l_int, start, count, *,
@@ -206,7 +199,8 @@ def _check(px, py, pz, wm, cols):
 
 
 def _check_live_loop(px, what: str):
-    """The live-sample kernels (discrete, VBL) index samples in int32."""
+    """The live-sample kernels (discrete, VRL, VBL) index samples in
+    int32."""
     if px.numel() >= 2**31:
         raise ValueError(f"{what}: {px.numel()} samples; the kernel takes "
                          f"fewer than 2^31")
@@ -230,7 +224,7 @@ def _lib():
         lib.vr_gather_vpu.argtypes = [p] * 7 + [i, ll, f, i, i, p, p]
         lib.vr_gather_vpu_discrete.argtypes = (
             [p] * 7 + [i, i, f, f, i, i, p, p, p])
-        lib.vr_gather_vpu_vrl.argtypes = [p] * 6 + [i, ll, i, p, p]
+        lib.vr_gather_vpu_vrl.argtypes = [p] * 6 + [i, i, i, p, p, p]
         lib.vr_gather_vpu_sphere.argtypes = (
             [p] * 7 + [i, i, i, f, i, i, p, p, p])
         for fn in ("vr_gather_vpu", "vr_gather_vpu_discrete",
@@ -318,13 +312,12 @@ def gather_segments_analytic(px, py, pz, wm, pos_from, pos_to, intensity,
                              quad_rule: str = "midpoint",
                              paired: bool = False) -> torch.Tensor:
     """Closed-form VRL (``sphere_radius=None``) or VBL quadrature gather
-    over (R, C) planes (VBL: fewer than 2^31 samples) -> (R, C) f32
-    weighted sums."""
+    over (R, C) planes of fewer than 2^31 samples -> (R, C) f32 weighted
+    sums."""
     if quad_rule not in ("midpoint", "tangent", "closed"):
         raise ValueError(f"unknown quadrature rule: {quad_rule!r}")
     _check(px, py, pz, wm, _segment_cols(pos_from, pos_to, intensity, valid))
-    if sphere_radius is not None:
-        _check_live_loop(px, "gather_segments_analytic")
+    _check_live_loop(px, "gather_segments_analytic")
     if px.device.type == "cpu":
         return gather_segments_analytic_reference(
             px, py, pz, wm, pos_from, pos_to, intensity, valid,
@@ -345,12 +338,12 @@ def gather_segments_analytic(px, py, pz, wm, pos_from, pos_to, intensity,
     table = _table(pos_from, u, length, ii)
     meta = _meta(start, count, dev)
     L, N = pos_from.shape[0], px.numel()
+    next_span = torch.zeros(1, dtype=torch.int32, device=dev)
     if rule is None:
         _run("vr_gather_vpu_vrl", dev, px, py, pz, wm, table, meta, L, N,
-             int(paired), out)
+             int(paired), next_span, out)
         launches["segment_analytic"] += 1
     else:
-        next_span = torch.zeros(1, dtype=torch.int32, device=dev)
         _run("vr_gather_vpu_sphere", dev, px, py, pz, wm, table,
              node_table(rule, nodes, dev), meta, L, N, nodes,
              f32(sphere_radius), _VARIANTS[rule], int(paired), next_span,
