@@ -92,7 +92,9 @@ Phases, each printed as one JSON line; any failure exits nonzero:
 
 The lines before the last are the card's name and power limit as
 nvidia-smi gives them and a JSON object of the kernels, one entry for each
-run of phases 5, 8, 11 and 16 (each with its launches in that run and its
+run of phases 5, 8, 11 and 16 (the many-light entries after the first two,
+gather_many[point,exact] and gather_many[sphere,exact], add their run's
+label to the name; each entry with its launches in that run and its
 bound: the larger of its f32 operations at 67 TFLOP/s and its bytes at
 3.35 TB/s, counted for this run's inputs; the point lane kernel at the
 widest band, the others at the whole shape a frame launches: the widest
@@ -1463,11 +1465,14 @@ def main() -> int:
                  f"{tier if key == 'vpu' else seg_tier}]", route="cuda",
             source="volumerenderer_tpu_torch/csrc/gather_vpu.cu",
             replaces=REPLACES[key], launches=launches, **v))
-    for label, algo_name, _, _ in MANY_RUNS:
+    for i, (label, algo_name, _, _) in enumerate(MANY_RUNS):
         launches, v = many_runs[label]
         variant = "sphere" if algo_name in ("SPHERE", "BEAM") else "point"
+        name = f"gather_many[{variant},exact]"
+        if i > 1:  # the first two keep the names of earlier kernels lines
+            name = f"{name} {label}"
         kernels.append(dict(
-            name=f"gather_many[{variant},exact] {label}", route="cuda",
+            name=name, route="cuda",
             source="volumerenderer_tpu_torch/csrc/gather_many.cu",
             replaces=REPLACES["many"], launches=launches, **v))
     print(smi, flush=True)

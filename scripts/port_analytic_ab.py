@@ -1,53 +1,31 @@
 """Hold the analytic kernels of this checkout (the lane kernel, row 3 of
 PERF.md's kernel table; the slots VRL and VBL kernels, rows 6 and 7)
-against those of an earlier checkout, and the closed-form VRL term's
-levers against each other, in one process on one card.
+against those of an earlier checkout, in one process on one card.
 
     python3 scripts/port_analytic_ab.py build/parent
 
 ``build/parent`` is an unpacked ``git archive`` of the earlier commit
 (under a gitignored directory).  Its ``csrc/gather_vpu.cu`` and
 ``csrc/gather_segments.cu`` are built with this checkout's nvcc flags, and
-so are this checkout's, once for each lever setting below (the ``VR_VRL_*``
-switches of ``csrc/gather_terms.cuh``), all into ``build/ab/``, one nvcc a
-library, all started together.  Each build is called through its own C
-signature on inputs that this checkout's wrappers prepare.  The earlier
-signatures are those of commit 18ec2b3: ``vr_gather_vpu_vrl`` took
-``long long N`` and no work counter, ``vr_gather_segments_analytic`` no
-work counter and no scratch plane.
-
-Builds of this checkout (VR_VRL_ROOT, _RCP, _FMA, _INTERLEAVE):
-
-  step1       0 0 0 0   the live-sample loop alone, every lever off;
-  interleave  0 0 0 1   step1 with the samples interleaved (the base of the
-                        lever builds below);
-  root1       1 0 0 1   1/sqrt by the sqrt fast path and rcp.approx;
-  root2       2 0 0 1   1/sqrt by rsqrt.approx;
-  rcp         0 1 0 1   the atan ratios by rcp.approx;
-  fma         0 0 1 1   the explicit FMAs where no difference cancels;
-  fma2        0 0 2 1   also in d x u and in b;
-  levers      2 1 1 0   the default levers, the samples one after another;
-  nofma       2 1 0 1   the defaults without the FMAs;
-  default     the header's defaults (what the wrappers load).
+so are this checkout's, all into ``build/ab/``, one nvcc a library, all
+started together.  Each build is called through its own C signature on
+inputs that this checkout's wrappers prepare.  An earlier checkout whose
+``vr_gather_vpu_vrl`` takes ``long long N`` (commit 18ec2b3 and before)
+is called as such: that entry had no work counter, and its
+``vr_gather_segments_analytic`` no work counter and no scratch plane.
 
 Prints the card's name and power limit, then one JSON line each:
 
   * ``ptxas``: registers, spill stores and shared memory of each analytic
     template of each build;
-  * ``bits``: whether a build's output equals the earlier checkout's bit for
-    bit, for rows 3 (four variants, both tiers), 6 (both tiers) and 7
+  * ``bits``: whether this checkout's output equals the earlier one's bit
+    for bit, for rows 3 (four variants, both tiers), 6 (both tiers) and 7
     (three rules, both tiers), on chip_smoke's segkernel and slotkernel
     cases and on the whole widest band of a RAY compact session or the
     whole 1080p ViewCache of a RAY slots session;
-  * ``time``: a build against the earlier checkout on those whole shapes,
+  * ``time``: this checkout against the earlier one on those whole shapes,
     in the order parent, change, change, parent, 5 launches each, by CUDA
-    events, with the change's max relative deviation from the parent;
-  * ``lever``: each lever build against its base (the single levers
-    against interleave, interleave and default against step1, levers and
-    nofma against default) on the whole shapes for the VRL templates of
-    rows 3 and 6, in the order base, lever, lever, base, with each build's
-    max relative deviation from the plain version (and, paired, from the
-    exact plain version).
+    events, with the change's max relative deviation from the parent.
 """
 
 from __future__ import annotations
@@ -68,22 +46,6 @@ from port_slots_ab import bits_equal, call, frame_inputs  # noqa: E402
 from volumerenderer_tpu_torch.ops.march import f32  # noqa: E402
 
 REPS = 5
-BUILDS = {  # name -> (VR_VRL_ROOT, _RCP, _FMA, _INTERLEAVE); None: defaults
-    "step1": (0, 0, 0, 0),
-    "interleave": (0, 0, 0, 1),
-    "root1": (1, 0, 0, 1),
-    "root2": (2, 0, 0, 1),
-    "rcp": (0, 1, 0, 1),
-    "fma": (0, 0, 1, 1),
-    "fma2": (0, 0, 2, 1),
-    "levers": (2, 1, 1, 0),
-    "nofma": (2, 1, 0, 1),
-    "default": None,
-}
-LEVER_BASE = {"interleave": "step1", "root1": "interleave",
-              "root2": "interleave", "rcp": "interleave", "fma": "interleave",
-              "fma2": "interleave", "levers": "default", "nofma": "default",
-              "default": "step1"}
 RULES = ((None, "midpoint"), (0.3, "midpoint"), (0.3, "tangent"),
          (0.3, "closed"))
 SOURCES = ("gather_vpu", "gather_segments")
@@ -121,27 +83,25 @@ def ptxas_summary(log: str) -> list:
     return rows
 
 
-def build_all(parent: Path) -> dict:
-    """Build the parent's two sources and this checkout's under every lever
-    setting, all nvcc processes at once; returns {build: {source: CDLL}}."""
+def build_all(parent: Path) -> tuple:
+    """Build the parent's two sources and this checkout's, all nvcc
+    processes at once; returns {build: {source: CDLL}} and whether the
+    parent has the old signatures."""
     from volumerenderer_tpu_torch.ops.kernels import _build
 
     out_dir = ROOT / "build" / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _build.nvcc_path()
-    setups = {"parent": (parent / "volumerenderer_tpu_torch" / "csrc", [])}
-    for name, levers in BUILDS.items():
-        flags = [] if levers is None else [
-            f"-DVR_VRL_{k}={v}" for k, v in zip(
-                ("ROOT", "RCP", "FMA", "INTERLEAVE"), levers)]
-        setups[name] = (_build.CSRC, flags)
+    setups = {"parent": parent / "volumerenderer_tpu_torch" / "csrc",
+              "change": _build.CSRC}
+    old = "long long N" in (setups["parent"] / "gather_vpu.cu").read_text()
     jobs = {}
-    for name, (csrc, flags) in setups.items():
+    for name, csrc in setups.items():
         for src in SOURCES:
             so = out_dir / f"lib{src}-{name}.so"
             jobs[name, src] = (so, subprocess.Popen(
-                [nvcc, *_build.NVCC_FLAGS, *flags, "-I", str(csrc), "-o",
-                 str(so), str(csrc / f"{src}.cu")],
+                [nvcc, *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(so),
+                 str(csrc / f"{src}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for (name, src), (so, proc) in jobs.items():
@@ -153,18 +113,18 @@ def build_all(parent: Path) -> dict:
     p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
     for name, lib in libs.items():
-        old = name == "parent"
+        o = old and name == "parent"
         vpu, seg = lib["gather_vpu"], lib["gather_segments"]
         vpu.vr_gather_vpu_vrl.argtypes = (
-            [p] * 6 + ([i, ll, i, p, p] if old else [i, i, i, p, p, p]))
+            [p] * 6 + ([i, ll, i, p, p] if o else [i, i, i, p, p, p]))
         vpu.vr_gather_vpu_sphere.argtypes = [p] * 7 + [i, i, i, f, i, i, p,
                                                         p, p]
         seg.vr_gather_segments_analytic.argtypes = (
-            [p] * 8 + [i, i, i, i, f, i, i] + [p] * (2 if old else 4))
+            [p] * 8 + [i, i, i, i, f, i, i] + [p] * (2 if o else 4))
         for fn in (vpu.vr_gather_vpu_vrl, vpu.vr_gather_vpu_sphere,
                    seg.vr_gather_segments_analytic):
             fn.restype = i
-    return libs
+    return libs, old
 
 
 def prepare(segs, radius, rule):
@@ -241,9 +201,9 @@ def alternate(fn_a, fn_b) -> list:
     return times
 
 
-def cases(libs, planes, need, segs, where, rows, time_builds):
-    """Bits and times of the given rows on one set of planes (need None:
-    slots)."""
+def cases(libs, old, planes, need, segs, where, rows, timed):
+    """Bits (and, timed, times) of the given rows on one set of planes
+    (need None: slots)."""
     lane = need is not None
     for radius, rule in RULES:
         row = 3 if lane else (6 if radius is None else 7)
@@ -252,60 +212,23 @@ def cases(libs, planes, need, segs, where, rows, time_builds):
         prep = prepare(segs, radius, rule)
         for paired in (False, True):
             def run(name, paired=paired):
-                lib, old = libs[name], name == "parent"
+                lib, o = libs[name], old and name == "parent"
                 if lane:
-                    return lane_run(lib, old, planes, need, segs, prep,
+                    return lane_run(lib, o, planes, need, segs, prep,
                                     radius, rule, paired)
-                return slot_run(lib, old, planes, segs, prep, radius, rule,
+                return slot_run(lib, o, planes, segs, prep, radius, rule,
                                 paired)
 
             want = run("parent")
+            got = run("change")
             emit("bits", row=row, kernel=label(row, radius, rule, paired),
-                 planes=where, equal={b: bits_equal(run(b), want)
-                                      for b in ("step1", "interleave",
-                                                "default")})
-            for b in time_builds:
-                t = alternate(lambda: run("parent"), lambda b=b: run(b))
+                 planes=where, equal=bits_equal(got, want))
+            if timed:
+                t = alternate(lambda: run("parent"), lambda: run("change"))
                 emit("time", kernel=label(row, radius, rule, paired),
-                     planes=where, shape=list(planes[0].shape), change=b,
+                     planes=where, shape=list(planes[0].shape),
                      parent_ms=[t[0], t[3]], change_ms=[t[1], t[2]],
-                     change_vs_parent_max_rel_err=cs.rel_err(run(b), want))
-
-
-def levers(libs, planes, need, segs, where):
-    """Each lever build against its base on the VRL templates, with each
-    build's deviation from the plain version."""
-    from volumerenderer_tpu_torch.ops.kernels import gather_segments as gs
-    from volumerenderer_tpu_torch.ops.kernels import gather_vpu as gv
-
-    lane = need is not None
-    prep = prepare(segs, None, "midpoint")
-    row = 3 if lane else 6
-    if lane:
-        plain = {p: gs.gather_segments_analytic_lanes_reference(
-            *planes, *segs, lane_need=need, paired=p,
-            max_elems=cs.PLAIN_ELEMS // 16) for p in (False, True)}
-    else:
-        plain = {p: gv.gather_segments_analytic_reference(
-            *planes, *segs, paired=p, max_elems=cs.PLAIN_ELEMS // 16)
-            for p in (False, True)}
-    for paired in (False, True):
-        def run(name, paired=paired):
-            if lane:
-                return lane_run(libs[name], False, planes, need, segs, prep,
-                                None, "midpoint", paired)
-            return slot_run(libs[name], False, planes, segs, prep, None,
-                            "midpoint", paired)
-
-        for b, base in LEVER_BASE.items():
-            t = alternate(lambda: run(base), lambda b=b: run(b))
-            got = run(b)
-            emit("lever", kernel=label(row, None, "midpoint", paired),
-                 planes=where, build=b, base=base, base_ms=[t[0], t[3]],
-                 build_ms=[t[1], t[2]],
-                 vs_plain_max_rel_err=cs.rel_err(got, plain[paired]),
-                 vs_exact_plain_max_rel_err=cs.rel_err(got, plain[False])
-                 if paired else None)
+                     change_vs_parent_max_rel_err=cs.rel_err(got, want))
 
 
 def main(argv) -> int:
@@ -322,14 +245,14 @@ def main(argv) -> int:
         return 2
     torch.cuda.set_device(0)
     print(cs.nvidia_smi_line(), flush=True)
-    libs = build_all(Path(argv[0]))
+    libs, old = build_all(Path(argv[0]))
     dev = torch.device("cuda")
 
     # chip_smoke's segkernel (lanes) and slotkernel (slots) cases.
     planes, segs, need = cs.segment_case(cs.SYNTH_CP, cs.SEG_RC, 7, dev)
-    cases(libs, planes, need, segs, "segkernel", (3,), ())
+    cases(libs, old, planes, need, segs, "segkernel", (3,), False)
     planes, segs, _ = cs.segment_case(cs.SYNTH_CP, cs.SEG_RC, 11, dev)
-    cases(libs, planes, None, segs, "slotkernel", (6, 7), ())
+    cases(libs, old, planes, None, segs, "slotkernel", (6, 7), False)
     del planes
 
     # The whole widest band of a RAY compact session, one frame's segments.
@@ -339,9 +262,8 @@ def main(argv) -> int:
     band = max(r._view.bands, key=lambda b: b.wx.shape[0])
     planes = (band.wx, band.wy, band.wz, band.weight)
     segs = frame_inputs(r)
-    cases(libs, planes, band.lane_need, segs, "widest band", (3,),
-          ("step1", "default"))
-    levers(libs, planes, band.lane_need, segs, "widest band")
+    cases(libs, old, planes, band.lane_need, segs, "widest band", (3,),
+          True)
     del r, band, planes
     torch.cuda.empty_cache()
 
@@ -352,9 +274,7 @@ def main(argv) -> int:
     v = r._view
     planes = (v.wx, v.wy, v.wz, v.weight)
     segs = frame_inputs(r)
-    cases(libs, planes, None, segs, "ViewCache", (6, 7),
-          ("step1", "default"))
-    levers(libs, planes, None, segs, "ViewCache")
+    cases(libs, old, planes, None, segs, "ViewCache", (6, 7), True)
     return 0
 
 
