@@ -94,7 +94,8 @@ def build_all(parent: Path) -> tuple:
     nvcc = _build.nvcc_path()
     setups = {"parent": parent / "volumerenderer_tpu_torch" / "csrc",
               "change": _build.CSRC}
-    old = "long long N" in (setups["parent"] / "gather_vpu.cu").read_text()
+    old = bool(re.search(r"vr_gather_vpu_vrl\([^)]*long long N",
+                         (setups["parent"] / "gather_vpu.cu").read_text()))
     jobs = {}
     for name, csrc in setups.items():
         for src in SOURCES:
