@@ -3,7 +3,8 @@
 // Replaces the TPU kernels of volumerenderer_tpu/ops/pallas/gather_vpu.py,
 // one __global__ template per kernel body:
 //   * vpu_kernel              <- `gather_vpu` -> `_kernel`: point or sphere
-//     lights, exact or paired (one divide per 4 lights);
+//     lights, exact or paired (one divide per 4 lights), over the light
+//     range staged once per block (gather_terms.cuh's LightRangeStage);
 //   * discrete_kernel (gather_terms.cuh) <- `gather_segments_discrete` ->
 //     `_segment_discrete_kernel`: the uncapped sub-light walk of each
 //     Ray/VRL (point) or Beam/VBL (sphere) segment, exact or paired: the
@@ -35,64 +36,15 @@
 // segment or every segment; the operands stay on chip (tables in shared
 // memory, sums in registers).  Most samples of a ViewCache are dead (~92%
 // at the bench config: rays that miss the volume, samples past the
-// transmittance cutoff), so the segment kernels run gather_terms.cuh's
+// transmittance cutoff), so every kernel runs gather_terms.cuh's
 // persistent live_sample_loop: blocks that take only live samples, kSamples
-// a thread.  The point/sphere kernel still gives one thread to each sample
-// (slot_loop), and a block of 256 dead samples returns at once.
+// a thread.
 
 #include "gather_terms.cuh"
 
 namespace {
 
 using namespace vr;
-
-// The one-thread-a-sample loop of vpu_kernel:
-// stage(c0, n) stages chunk c0's n entries; body(n, c0, x, y, z, acc) adds
-// them to a sample's running sum.
-template <class Body, class Stage>
-__device__ __forceinline__ void slot_loop(
-    const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ pz, const float* __restrict__ w, long long N,
-    int span, float* __restrict__ out, const Body& body, const Stage& stage) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  const bool in = i < N;
-  const float wi = in ? w[i] : 0.0f;
-  const bool live = wi != 0.0f;
-  if (!__syncthreads_or(live)) {  // uniform in the block
-    if (in) out[i] = 0.0f;
-    return;
-  }
-  const float x = live ? px[i] : 0.0f;
-  const float y = live ? py[i] : 0.0f;
-  const float z = live ? pz[i] : 0.0f;
-  float acc = 0.0f;
-  for (int c0 = 0; c0 < span; c0 += kChunk) {
-    const int n = min(kChunk, span - c0);
-    __syncthreads();  // the previous chunk is no longer read
-    stage(c0, n);
-    __syncthreads();
-    if (live) acc = body(n, c0, x, y, z, acc);
-  }
-  if (in) out[i] = live ? wi * acc : 0.0f;
-}
-
-struct LightStage {
-  const float* lpos;
-  const float* li;
-  int L, start;
-  float4* s_light;
-  __device__ __forceinline__ void operator()(int c0, int n) const {
-    stage_lights(lpos, li, L, start + c0, n, s_light);
-  }
-};
-
-// The valid range [start, start + count) of L slots, read on the device.
-__device__ __forceinline__ void light_range(const int* __restrict__ meta,
-                                            int L, int* start, int* count) {
-  *start = max(meta[0], 0);
-  *count = max(min(meta[1], L - *start), 0);
-}
 
 // ---- gather_vpu._kernel ----
 
@@ -101,29 +53,34 @@ __global__ void __launch_bounds__(kThreads) vpu_kernel(
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz, const float* __restrict__ w,
     const float* __restrict__ lpos, const float* __restrict__ li,
-    const int* __restrict__ meta, int L, long long N, float radius,
-    float* __restrict__ out) {
-  __shared__ float4 s_light[kChunk];
+    const int* __restrict__ meta, int L, int N, float radius,
+    int* __restrict__ next_span, float* __restrict__ out) {
+  __shared__ float4 s_light[kStage];
+  __shared__ LiveShared sh;
   int start, count;
   light_range(meta, L, &start, &count);
   // The paired tier walks whole groups of 4 from `start`.
   const int span = kPaired ? ((count + 3) / 4) * 4 : count;
-  const PointBody<kSphere, kPaired> body{s_light, radius, count};
-  slot_loop(px, py, pz, w, N, span, out, body,
-            LightStage{lpos, li, L, start, s_light});
-}
-
-dim3 blocks_of(long long N) {
-  return dim3(static_cast<unsigned>((N + kThreads - 1) / kThreads));
+  LightRangeStage stage{lpos, li, L, start, span, s_light, 0, 0};
+  live_sample_loop(px, py, pz, w, nullptr, 0, N, next_span, out, stage,
+                   PointBodySums<kSphere, kPaired>{{s_light, radius, count},
+                                                   &stage},
+                   sh);
 }
 
 template <bool kSphere, bool kPaired>
-void launch_vpu(const float* px, const float* py, const float* pz,
-                const float* w, const float* lpos, const float* li,
-                const int* meta, int L, long long N, float radius, float* out,
-                cudaStream_t s) {
-  vpu_kernel<kSphere, kPaired><<<blocks_of(N), kThreads, 0, s>>>(
-      px, py, pz, w, lpos, li, meta, L, N, radius, out);
+int launch_vpu(const float* px, const float* py, const float* pz,
+               const float* w, const float* lpos, const float* li,
+               const int* meta, int L, int N, float radius, int* next_span,
+               float* out, cudaStream_t s) {
+  static ResidentBlocks resident;
+  unsigned blocks = 0;
+  const int err = persistent_blocks(vpu_kernel<kSphere, kPaired>, resident,
+                                    N, &blocks);
+  if (err != 0) return err;
+  vpu_kernel<kSphere, kPaired><<<blocks, kThreads, 0, s>>>(
+      px, py, pz, w, lpos, li, meta, L, N, radius, next_span, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kSphere, bool kPaired>
@@ -161,37 +118,28 @@ int launch_analytic(const float* px, const float* py, const float* pz,
 }  // namespace
 
 // Plain C entry points.  Planes px, py, pz, w and out: N f32 each (the flat
-// (R, C) planes); meta: int32 (start, count, ...) on the device.  Each
-// launches on `stream` and returns a CUDA error code (0: launched).  The
-// point/sphere kernel takes N <= 2^31 * 256; the segment kernels N < 2^31,
-// with next_span one int32 set to 0 (the persistent blocks' work counter).
+// (R, C) planes), N < 2^31; meta: int32 (start, count, ...) on the device;
+// next_span: one int32 set to 0 (the persistent blocks' work counter).
+// Each launches on `stream` and returns a CUDA error code (0: launched).
 
 // lpos: (L, 3) f32; li: (L,) f32 = I / (4 pi); meta: int32[2].
 extern "C" int vr_gather_vpu(const float* px, const float* py,
                              const float* pz, const float* w,
                              const float* lpos, const float* li,
-                             const int* meta, int L, long long N,
-                             float radius, int sphere, int paired,
+                             const int* meta, int L, int N, float radius,
+                             int sphere, int paired, int* next_span,
                              float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VR_VPU(SPHERE, PAIRED)                                              \
+  return launch_vpu<SPHERE, PAIRED>(px, py, pz, w, lpos, li, meta, L, N,    \
+                                    radius, next_span, out, s)
   if (sphere) {
-    if (paired) {
-      launch_vpu<true, true>(px, py, pz, w, lpos, li, meta, L, N, radius, out,
-                             s);
-    } else {
-      launch_vpu<true, false>(px, py, pz, w, lpos, li, meta, L, N, radius,
-                              out, s);
-    }
-  } else {
-    if (paired) {
-      launch_vpu<false, true>(px, py, pz, w, lpos, li, meta, L, N, radius,
-                              out, s);
-    } else {
-      launch_vpu<false, false>(px, py, pz, w, lpos, li, meta, L, N, radius,
-                               out, s);
-    }
+    if (paired) VR_VPU(true, true);
+    VR_VPU(true, false);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (paired) VR_VPU(false, true);
+  VR_VPU(false, false);
+#undef VR_VPU
 }
 
 // table: (L, 8) f32 rows (ax, ay, az, ux, uy, uz, ns as int32 bits,

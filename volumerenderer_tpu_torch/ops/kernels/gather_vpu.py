@@ -20,10 +20,10 @@ it so).
 Each wrapper launches csrc/gather_vpu.cu for CUDA tensors and counts the
 launch in ``launches``; for CPU tensors it runs its ``*_reference``, the
 same function in plain PyTorch.  It never sends a CUDA tensor to the plain
-version.  The segment kernels (discrete, VRL, VBL) take only live samples
-through a loop that indexes samples in int32, so those wrappers refuse
-planes of 2^31 samples or more (the 1080p ViewCache holds 298,598,400; a
-4K one at a march cap of 144, 1.19e9).
+version.  Every kernel takes only live samples through a loop that indexes
+samples in int32, so the wrappers refuse planes of 2^31 samples or more
+(the 1080p ViewCache holds 298,598,400; a 4K one at a march cap of 144,
+1.19e9).
 """
 
 from __future__ import annotations
@@ -194,13 +194,12 @@ def _check(px, py, pz, wm, cols):
                              f"got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if px.numel() >= 2**31 * 256 or 8 * cols[0][1].shape[0] >= 2**31:
+    if 8 * cols[0][1].shape[0] >= 2**31:
         raise ValueError("gather_vpu: a dimension exceeds the kernels' range")
 
 
 def _check_live_loop(px, what: str):
-    """The live-sample kernels (discrete, VRL, VBL) index samples in
-    int32."""
+    """The live-sample kernels (all four) index samples in int32."""
     if px.numel() >= 2**31:
         raise ValueError(f"{what}: {px.numel()} samples; the kernel takes "
                          f"fewer than 2^31")
@@ -220,8 +219,7 @@ def _lib():
     lib = library("gather_vpu")
     if not getattr(lib, "_vr_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        ll = ctypes.c_longlong
-        lib.vr_gather_vpu.argtypes = [p] * 7 + [i, ll, f, i, i, p, p]
+        lib.vr_gather_vpu.argtypes = [p] * 7 + [i, i, f, i, i, p, p, p]
         lib.vr_gather_vpu_discrete.argtypes = (
             [p] * 7 + [i, i, f, f, i, i, p, p, p])
         lib.vr_gather_vpu_vrl.argtypes = [p] * 6 + [i, i, i, p, p, p]
@@ -256,12 +254,13 @@ def _require_cuda(px, what: str):
 
 def gather_vpu(px, py, pz, wm, l_pos, l_int, start, count, *, sphere: bool,
                radius=0.0, paired: bool = False) -> torch.Tensor:
-    """Point/sphere gather over (R, C) planes -> (R, C) f32 weighted sums.
-    ``start``/``count``: the valid light range, ints or device scalars
-    (the kernel reads them on the device)."""
+    """Point/sphere gather over (R, C) planes of fewer than 2^31 samples ->
+    (R, C) f32 weighted sums.  ``start``/``count``: the valid light range,
+    ints or device scalars (the kernel reads them on the device)."""
     L = l_pos.shape[0]
     _check(px, py, pz, wm, [("l_pos", l_pos, (L, 3), torch.float32),
                             ("l_int", l_int, (L,), torch.float32)])
+    _check_live_loop(px, "gather_vpu")
     if px.device.type == "cpu":
         return gather_vpu_reference(px, py, pz, wm, l_pos, l_int, start,
                                     count, sphere=sphere, radius=radius,
@@ -269,9 +268,11 @@ def gather_vpu(px, py, pz, wm, l_pos, l_int, start, count, *, sphere: bool,
     _require_cuda(px, "gather_vpu")
     out = torch.empty_like(px)
     if out.numel():
+        next_span = torch.zeros(1, dtype=torch.int32, device=px.device)
         _run("vr_gather_vpu", px.device, px, py, pz, wm, l_pos,
              l_int * _INV_FOUR_PI, _meta(start, count, px.device), L,
-             px.numel(), f32(radius), int(sphere), int(paired), out)
+             px.numel(), f32(radius), int(sphere), int(paired), next_span,
+             out)
         launches["vpu"] += 1
     return out
 
