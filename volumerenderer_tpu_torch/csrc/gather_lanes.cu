@@ -9,9 +9,13 @@
 //
 // with d2e = |p - l|^2 for point lights and (|p - l| - r)^2 for sphere lights
 // (guarded when d2e < 1e-4, and for spheres also at the centre).  The paired
-// tier sums groups of 4 lights with one divide:
+// tier sums groups of 4 lights with one reciprocal:
 //     ((n1 q2 + n2 q1) q34 + (n3 q4 + n4 q3) q12) / (q12 q34)
-// where guarded and overrun terms are (n = 0, q = 1).
+// where guarded and overrun terms are (n = 0, q = 1).  The terms are
+// gather_terms.cuh's staged sums (staged_light_sums, staged_point_groups),
+// shared with the slots kernel of gather_vpu.cu: an FMA in d^2 and in the
+// running sum, and rcp.approx.ftz for the divide, with the ranges that
+// header states.
 //
 // What bounds it on this card: issue slots over (used sample, light) terms,
 // not bytes.  Each used sample (16 B of planes) meets every light, ~50 a
@@ -27,9 +31,6 @@
 // plane: a lane's sum stays in a register, w * sum added in row order.
 // Beyond kStage slots (direct calls only) the table is re-staged for every
 // kSamples rows, up to the block's largest need.
-//
-// The per-(sample, light) terms live in gather_terms.cuh, shared with the
-// slots kernel of gather_vpu.cu.
 
 #include "gather_terms.cuh"
 
@@ -67,8 +68,7 @@ __global__ void __launch_bounds__(kThreads) gather_lanes_kernel(
   const int span = kPaired ? ((count + 3) / 4) * 4 : count;
   const int need = in ? min(lane_need[lane], Cp) : 0;
   LightRangeStage stage{lpos, li, L, start, span, s_light, 0, 0};
-  const PointBodySums<kSphere, kPaired> sums{{s_light, radius, count},
-                                             &stage};
+  const PointSums<kSphere, kPaired> sums{s_light, radius, count, &stage};
   stage.begin();
   const int n_whole = stage.next();
   const bool whole = stage.done();  // the table fits one stage

@@ -13,7 +13,7 @@
 //     out[i] = w[i] * sum over valid slots k, in slot order, of
 //              (bad ? 0 : li_k / max(d2e, 1e-4))
 //
-// with li = I / (4 pi) and d2e, bad as vr::d2e_of (gather_terms.cuh)
+// with li = I / (4 pi) and d2e, bad as vr::staged_d2e (gather_terms.cuh)
 // computes them, the term every other route evaluates.  Lights are staged
 // through shared memory as float4 (x, y, z, li), one 256-slot tile (the TPU
 // kernel's TILE_L) after another.  A tile whose active flag (any valid slot,

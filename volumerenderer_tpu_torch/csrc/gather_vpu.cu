@@ -63,8 +63,7 @@ __global__ void __launch_bounds__(kThreads) vpu_kernel(
   const int span = kPaired ? ((count + 3) / 4) * 4 : count;
   LightRangeStage stage{lpos, li, L, start, span, s_light, 0, 0};
   live_sample_loop(px, py, pz, w, nullptr, 0, N, next_span, out, stage,
-                   PointBodySums<kSphere, kPaired>{{s_light, radius, count},
-                                                   &stage},
+                   PointSums<kSphere, kPaired>{s_light, radius, count, &stage},
                    sh);
 }
 
