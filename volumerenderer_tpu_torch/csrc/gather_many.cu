@@ -22,7 +22,7 @@
 // uniform.
 //
 // Validity: only a tile's valid slots are staged, compacted in slot order (a
-// ballot and a prefix count over the block's warps).  The TPU kernel's caller
+// prefix count over the block, gather_terms.cuh's block_offset).  The TPU kernel's caller
 // instead parks an invalid slot at 1e15 with zero intensity
 // (gather_kernel.py:114-115), whose term is exactly 0; leaving it out adds
 // the same exact zeros, so the sum is bit for bit the same, and an invalid
@@ -64,7 +64,7 @@ static_assert(kTileL == kThreads, "one slot per thread stages a tile");
 
 // Stages the valid slots of tile [c0, c0 + n) into s_light in slot order;
 // returns their count, the same in every thread.  Called by the whole
-// block; s_warp holds kWarps counts.  The caller synchronises before it (the
+// block; s_warp holds kWarps counts (a prefix count over the block).  The caller synchronises before it (the
 // previous tile is no longer read) and after it (s_light is complete).
 __device__ __forceinline__ int stage_valid(
     const float* __restrict__ lpos, const float* __restrict__ li,
@@ -73,7 +73,7 @@ __device__ __forceinline__ int stage_valid(
   const int t = threadIdx.x;
   const bool v = t < n && valid[c0 + t] != 0;
   int total;
-  const int rank = block_rank(v, s_warp, &total);
+  const int rank = block_offset(v ? 1 : 0, s_warp, &total);
   if (v) {
     const int k = c0 + t;
     s_light[rank] =
@@ -137,7 +137,8 @@ int launch_many(const float* px, const float* py, const float* pz,
   static ResidentBlocks resident;
   unsigned blocks = 0;
   const int err =
-      persistent_blocks(many_kernel<kSphere>, resident, N, &blocks);
+      persistent_blocks(many_kernel<kSphere>, resident, N, w, out,
+                        &blocks);
   if (err != 0) return err;
   many_kernel<kSphere><<<blocks, kThreads, 0, s>>>(
       px, py, pz, w, lpos, li, valid, active, L, N, radius, next_span, out);

@@ -46,7 +46,7 @@
 // analytic_kernel (gather_terms.cuh, shared with the slots VRL and VBL
 // kernels of gather_vpu.cu) runs the same loop with lane_need: the segment
 // table (ax, ay, az, ux, uy, uz, len, ii: 32 B) staged in shared memory in
-// chunks of 1024 segments and read as broadcasts, each live sample's
+// chunks of kChunk (960) segments and read as broadcasts, each live sample's
 // integral summed in segment order and its w * sum written to the scratch
 // plane, then lane_sum_kernel.  A used sample of zero weight costs nothing
 // (a thread per lane evaluated it and added w * sum = 0).
@@ -89,12 +89,12 @@ dim3 grid_of(int Rc) { return dim3((Rc + kThreads - 1) / kThreads); }
 // Pass 1, `kernel` launched persistent over the N = Cp * Rc samples by
 // `launch(blocks)`, then pass 2.  Returns a CUDA error code.
 template <class Kernel, class Launch>
-int two_passes(Kernel kernel, ResidentBlocks& resident, const int* lane_need,
-               int Cp, int Rc, const float* terms, float* out, cudaStream_t s,
-               Launch launch) {
+int two_passes(Kernel kernel, ResidentBlocks& resident, const float* w,
+               const int* lane_need, int Cp, int Rc, const float* terms,
+               float* out, cudaStream_t s, Launch launch) {
   const int N = Cp * Rc;
   unsigned blocks = 0;
-  const int err = persistent_blocks(kernel, resident, N, &blocks);
+  const int err = persistent_blocks(kernel, resident, N, w, terms, &blocks);
   if (err != 0) return err;
   if (N > 0) {
     launch(blocks);
@@ -114,8 +114,8 @@ int launch_discrete(const float* px, const float* py, const float* pz,
                     float* out, cudaStream_t s) {
   static ResidentBlocks resident;
   return two_passes(
-      discrete_kernel<kSphere, kPaired>, resident, lane_need, Cp, Rc, terms,
-      out, s, [&](unsigned blocks) {
+      discrete_kernel<kSphere, kPaired>, resident, w, lane_need, Cp, Rc,
+      terms, out, s, [&](unsigned blocks) {
         discrete_kernel<kSphere, kPaired><<<blocks, kThreads, 0, s>>>(
             px, py, pz, w, lane_need, table, first, meta, L, Rc, Cp * Rc,
             step, radius, next_span, terms);
@@ -130,8 +130,8 @@ int launch_analytic(const float* px, const float* py, const float* pz,
                     float* terms, float* out, cudaStream_t s) {
   static ResidentBlocks resident;
   return two_passes(
-      analytic_kernel<kVariant, kPaired>, resident, lane_need, Cp, Rc, terms,
-      out, s, [&](unsigned blocks) {
+      analytic_kernel<kVariant, kPaired>, resident, w, lane_need, Cp, Rc,
+      terms, out, s, [&](unsigned blocks) {
         analytic_kernel<kVariant, kPaired><<<blocks, kThreads, 0, s>>>(
             px, py, pz, w, lane_need, table, node_tab, meta, L, Rc, Cp * Rc,
             nodes, radius, next_span, terms);

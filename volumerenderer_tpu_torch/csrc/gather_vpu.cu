@@ -75,7 +75,7 @@ int launch_vpu(const float* px, const float* py, const float* pz,
   static ResidentBlocks resident;
   unsigned blocks = 0;
   const int err = persistent_blocks(vpu_kernel<kSphere, kPaired>, resident,
-                                    N, &blocks);
+                                    N, w, out, &blocks);
   if (err != 0) return err;
   vpu_kernel<kSphere, kPaired><<<blocks, kThreads, 0, s>>>(
       px, py, pz, w, lpos, li, meta, L, N, radius, next_span, out);
@@ -90,7 +90,7 @@ int launch_discrete(const float* px, const float* py, const float* pz,
   static ResidentBlocks resident;
   unsigned blocks = 0;
   const int err = persistent_blocks(discrete_kernel<kSphere, kPaired>,
-                                    resident, N, &blocks);
+                                    resident, N, w, out, &blocks);
   if (err != 0) return err;
   discrete_kernel<kSphere, kPaired><<<blocks, kThreads, 0, s>>>(
       px, py, pz, w, nullptr, table, first, meta, L, 0, N, step, radius,
@@ -106,7 +106,7 @@ int launch_analytic(const float* px, const float* py, const float* pz,
   static ResidentBlocks resident;
   unsigned blocks = 0;
   const int err = persistent_blocks(analytic_kernel<kVariant, kPaired>,
-                                    resident, N, &blocks);
+                                    resident, N, w, out, &blocks);
   if (err != 0) return err;
   analytic_kernel<kVariant, kPaired><<<blocks, kThreads, 0, s>>>(
       px, py, pz, w, nullptr, table, node_tab, meta, L, 0, N, nodes, radius,
@@ -117,7 +117,8 @@ int launch_analytic(const float* px, const float* py, const float* pz,
 }  // namespace
 
 // Plain C entry points.  Planes px, py, pz, w and out: N f32 each (the flat
-// (R, C) planes), N < 2^31; meta: int32 (start, count, ...) on the device;
+// (R, C) planes), N < 2^31, w and out 16-byte aligned; meta: int32
+// (start, count, ...) on the device;
 // next_span: one int32 set to 0 (the persistent blocks' work counter).
 // Each launches on `stream` and returns a CUDA error code (0: launched).
 
