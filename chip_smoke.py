@@ -11,8 +11,10 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                checkout, all at once; ptxas registers, spills and shared
                memory per kernel template;
   3. kernel    the point gather kernel against its plain PyTorch version at
-               synthetic shapes (Cp 144, Rc 524288, L in {1, 37, 1000},
-               point/sphere, exact/paired, plus edge cases);
+               synthetic shapes (Cp 144, Rc 524288, L in {1, 37, 1000,
+               2048}, point/sphere, exact/paired, plus edge cases; the
+               paired tier against the exact and the paired plain
+               versions);
   4. segkernel the two segment kernels against their plain versions at
                synthetic shapes (Cp 144, Rc 65536): discrete point/sphere x
                exact/paired and every analytic variant (the paired VRL
@@ -28,7 +30,8 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                Renderer(..., device=DEV) in both gather tiers: step(8)
                warm-up, then step(32) timed; kernel launches counted;
   6. shapes    the point kernel against its plain version on the live
-               view's bands and one frame's lights;
+               view's widest band and one frame's lights (the paired tier
+               against the exact and the paired plain versions);
   7. sphere    a few Sphere/VSL frames at the bench config;
   8. raybeam   the bench config for RAY discrete exact and paired, RAY
                analytic exact and paired, BEAM discrete exact and BEAM
@@ -42,8 +45,9 @@ Phases, each printed as one JSON line; any failure exits nonzero:
  10. slotkernel the 16 slot-kernel templates (csrc/gather_vpu.cu) against
                their plain versions at synthetic (R, C) = (144, 65536) slot
                planes, about half of them at zero weight, with the segment
-               edge cases above and a light table of two chunks (the paired
-               VRL one also against the exact plain version);
+               edge cases above, the point kernel over a range from 3 of
+               1,093 lights and over 2,048 slots (the paired point and VRL
+               kernels also against the exact plain version);
  11. uncached  the bench config with compact_view=False (the slots
                ViewCache) for POINT exact and paired, RAY discrete exact
                and paired, RAY analytic exact and paired, BEAM discrete
@@ -55,8 +59,10 @@ Phases, each printed as one JSON line; any failure exits nonzero:
  12. slotshapes each run's slot kernel against its plain version on one
                frame's lights, on 65,536 rays of the live 1080p ViewCache
                and then on the whole ViewCache, as a frame launches it
-               (the paired discrete and VRL kernels also against the exact
-               plain version, at RTOL_PAIRED);
+               (the paired point, discrete and VRL kernels also against the
+               exact plain version, at RTOL_PAIRED), and the same launch
+               over an empty range (full_scan_ms: the live-sample scan
+               alone);
  13. drag      the interactive viewer's setup at the bench config (RAY,
                motion_mode="coarse", first_frame_uncached, settle_chunks
                4): the first frame (warm), coarse drag frames, the settle
@@ -357,7 +363,7 @@ def phase_kernel():
 
     dev = torch.device(DEV)
     Cp, Rc = SYNTH_CP, SYNTH_RC
-    cases = [(L, 0, L) for L in (1, 37, 1000)]
+    cases = [(L, 0, L) for L in (1, 37, 1000, 2048)]
     cases += [(37, 5, 30), (1000, 3, 997 - 2), (0, 0, 0)]  # start>0, count%4
     for ci, (L, start, count) in enumerate(cases):
         planes, lpos, lint, need, s, c = synthetic_case(
@@ -373,12 +379,19 @@ def phase_kernel():
                 got, ms = cuda_timed(run, 3)
                 err = rel_err(got, ref)
                 tol = RTOL_PAIRED if paired else RTOL_EXACT
+                same_tier = None
+                if paired:  # the paired plain version: the levers alone
+                    same_tier = rel_err(got, gl.gather_lanes_reference(
+                        *planes, lpos, lint, s, c, paired=True,
+                        max_elems=PLAIN_ELEMS, **kw))
                 emit("kernel", L=L, start=s, count=c, sphere=sphere,
                      paired=paired, Cp=Cp, Rc=Rc, max_rel_err=err, tol=tol,
-                     ms=ms, plain_exact_ms=plain_ms)
-                if not err <= tol:
+                     same_tier_max_rel_err=same_tier, ms=ms,
+                     plain_exact_ms=plain_ms)
+                if not (err <= tol and (same_tier or 0.0) <= RTOL_EXACT):
                     raise AssertionError(
-                        f"kernel vs plain: rel err {err:.3g} > {tol:g} "
+                        f"kernel vs plain: rel err {err:.3g} > {tol:g} or "
+                        f"{same_tier} > {RTOL_EXACT:g} in the same tier "
                         f"(L={L} start={s} count={c} sphere={sphere} "
                         f"paired={paired})")
         del planes
@@ -451,14 +464,14 @@ def segment_variants():
 
 
 def held_against_exact(kind: str, kw: dict, live: bool = True) -> bool:
-    """Whether a paired segment kernel is also held against the exact
-    plain version at RTOL_PAIRED: the closed-form VRL everywhere, the
-    discrete kernels at a frame's live shapes (the synthetic tables put
-    samples inside beams and on sub-lights, where the paired Beam tier
-    reads 3.4e-5 from exact; the VBL rules' pairing reorders terms that
-    cancel, and the JAX suite bounds it at 2e-4)."""
+    """Whether a paired kernel is also held against the exact plain
+    version at RTOL_PAIRED: the point slot kernel and the closed-form VRL
+    everywhere, the discrete kernels at a frame's live shapes (the
+    synthetic tables put samples inside beams and on sub-lights, where the
+    paired Beam tier reads 3.4e-5 from exact; the VBL rules' pairing
+    reorders terms that cancel, and the JAX suite bounds it at 2e-4)."""
     return bool(kw.get("paired")) and (
-        (kind == "discrete" and live)
+        kind == "vpu" or (kind == "discrete" and live)
         or (kind == "analytic" and kw.get("sphere_radius") is None))
 
 
@@ -632,15 +645,22 @@ def phase_shapes(r, tier: str):
     err = rel_err(got, ref)
     abs_err = float((got - ref).abs().max())
     tol = RTOL_PAIRED if paired else RTOL_EXACT
+    same_tier = None
+    if paired:  # the paired plain version: the levers alone
+        same_tier = rel_err(got, gl.gather_lanes_reference(
+            *args, paired=True, max_elems=PLAIN_ELEMS, **kw))
     bound_ms, bound_by = lane_bound(
         band.weight, band.lane_need, ops_per_sample("point", int(count)),
         16 * int(count))
     emit("shapes", tier=tier, Cp=band.wx.shape[0], Rc=band.wx.shape[1],
          lights=int(count), max_rel_err=err, max_abs_err=abs_err, tol=tol,
-         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-    if not err <= tol:
+         same_tier_max_rel_err=same_tier, ms=ms, plain_ms=plain_ms,
+         bound_ms=bound_ms, bound_by=bound_by)
+    if not (err <= tol and (same_tier or 0.0) <= RTOL_EXACT):
         raise AssertionError(f"{tier}: kernel vs plain at the main "
-                             f"path's shapes: rel err {err:.3g} > {tol:g}")
+                             f"path's shapes: rel err {err:.3g} > {tol:g}, "
+                             f"or {same_tier} > {RTOL_EXACT:g} in the same "
+                             "tier")
     return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
@@ -790,10 +810,14 @@ def slot_variants():
     return out
 
 
-def slot_exact_plain(kind, planes, segs, step, kw):
-    """The exact plain version of a slot segment kernel's call."""
+def slot_exact_plain(kind, planes, segs, lights, step, kw):
+    """The exact plain version of a slot kernel's call."""
     from volumerenderer_tpu_torch.ops.kernels import gather_vpu as gv
 
+    if kind == "vpu":
+        return gv.gather_vpu_reference(*planes, *lights, sphere=kw["sphere"],
+                                       radius=kw["radius"],
+                                       max_elems=PLAIN_ELEMS)
     if kind == "discrete":
         return gv.gather_segments_discrete_reference(
             *planes, *segs, step, sphere_radius=kw["sphere_radius"],
@@ -802,24 +826,32 @@ def slot_exact_plain(kind, planes, segs, step, kw):
         *planes, *segs, max_elems=PLAIN_ELEMS // 16)
 
 
-def run_slot_kernel(kind, planes, segs, lights, step, kw, reps=3):
-    """A slot kernel and its plain version on the same inputs: returns
-    (max rel err, max abs err, kernel ms, plain ms, kernel output)."""
+def slot_call(kind, planes, segs, lights, step, kw, plain=False):
+    """A slot kernel's call on these inputs (``plain``: its plain
+    version's), as a function of no arguments."""
     from volumerenderer_tpu_torch.ops.kernels import gather_vpu as gv
 
     if kind == "vpu":
-        lpos, lint, start, count = lights
-        fn = lambda: gv.gather_vpu(*planes, lpos, lint, start, count, **kw)
-        ref_fn = lambda: gv.gather_vpu_reference(
-            *planes, lpos, lint, start, count, max_elems=PLAIN_ELEMS, **kw)
-    elif kind == "discrete":
-        fn = lambda: gv.gather_segments_discrete(*planes, *segs, step, **kw)
-        ref_fn = lambda: gv.gather_segments_discrete_reference(
-            *planes, *segs, step, max_elems=PLAIN_ELEMS, **kw)
-    else:
-        fn = lambda: gv.gather_segments_analytic(*planes, *segs, **kw)
-        ref_fn = lambda: gv.gather_segments_analytic_reference(
+        if plain:
+            return lambda: gv.gather_vpu_reference(
+                *planes, *lights, max_elems=PLAIN_ELEMS, **kw)
+        return lambda: gv.gather_vpu(*planes, *lights, **kw)
+    if kind == "discrete":
+        if plain:
+            return lambda: gv.gather_segments_discrete_reference(
+                *planes, *segs, step, max_elems=PLAIN_ELEMS, **kw)
+        return lambda: gv.gather_segments_discrete(*planes, *segs, step, **kw)
+    if plain:
+        return lambda: gv.gather_segments_analytic_reference(
             *planes, *segs, max_elems=PLAIN_ELEMS // 16, **kw)
+    return lambda: gv.gather_segments_analytic(*planes, *segs, **kw)
+
+
+def run_slot_kernel(kind, planes, segs, lights, step, kw, reps=3):
+    """A slot kernel and its plain version on the same inputs: returns
+    (max rel err, max abs err, kernel ms, plain ms, kernel output)."""
+    fn = slot_call(kind, planes, segs, lights, step, kw)
+    ref_fn = slot_call(kind, planes, segs, lights, step, kw, plain=True)
     fn()  # first launch outside the timing
     got, ms = cuda_timed(fn, reps)
     ref, plain_ms = cuda_timed(ref_fn)
@@ -836,18 +868,24 @@ def phase_slot_kernel():
     dev = torch.device(DEV)
     planes, segs, _need = segment_case(SYNTH_CP, SEG_RC, 11, dev)
     _, lpos, lint, _, _, _ = synthetic_case(8, 8, 1100, 0, 0, 12, dev)
-    lights = (lpos, lint, 3, 1093)  # two chunks of 1024, count % 4 = 1
+    _, lpos2, lint2, _, _, _ = synthetic_case(8, 8, 2048, 0, 0, 13, dev)
+    # A range from 3 of 1,093 lights (count % 4 = 1), and 2,048 slots, all
+    # valid: SMEM_LIGHT_LIMIT, one stage of the kernel's table.
+    light_sets = ((lpos, lint, 3, 1093), (lpos2, lint2, 0, 2048))
     n0 = dict(gv.launches)
     zero = float((planes[3] == 0).double().mean())
-    for label, kind, kw in slot_variants():
+    runs = [(label, kind, kw, light_set) for label, kind, kw in slot_variants()
+            for light_set in (light_sets if kind == "vpu" else light_sets[:1])]
+    for label, kind, kw, light_set in runs:
         err, abs_err, ms, plain_ms, got = run_slot_kernel(
-            kind, planes, segs, lights, 0.3, kw)
+            kind, planes, segs, light_set, 0.3, kw)
         vs_exact = None
         if held_against_exact(kind, kw, live=False):
-            vs_exact = rel_err(got, slot_exact_plain(kind, planes, segs, 0.3,
-                                                     kw))
+            vs_exact = rel_err(got, slot_exact_plain(kind, planes, segs,
+                                                     light_set, 0.3, kw))
         tol = slot_tol(kind, kw)
         emit("slotkernel", variant=label, R=SYNTH_CP, C=SEG_RC,
+             lights=light_set[3] if kind == "vpu" else None,
              zero_weight_share=zero, max_rel_err=err, max_abs_err=abs_err,
              tol=tol, ms=ms, plain_ms=plain_ms,
              vs_exact_plain_max_rel_err=vs_exact)
@@ -862,11 +900,10 @@ def phase_slot_kernel():
 
 def slot_tol(kind: str, kw: dict) -> float:
     """A slot kernel's tolerance against its plain version in the same
-    tier: the segment kernels' RTOL_SEGMENT; the point kernel's paired tier
-    RTOL_PAIRED, as in the lane layout."""
-    if kind != "vpu":
-        return RTOL_SEGMENT
-    return RTOL_PAIRED if kw["paired"] else RTOL_EXACT
+    tier: the plain versions sum in the kernels' order, so the kernel
+    against them reads only its instruction forms (the paired tier against
+    the exact plain version: RTOL_PAIRED, held_against_exact)."""
+    return RTOL_SEGMENT if kind != "vpu" else RTOL_EXACT
 
 
 def slot_kind(algo_name: str, mode: str) -> tuple:
@@ -1012,11 +1049,20 @@ def phase_slot_shapes(r, algo_name, tier, mode, seg_tier, rule):
     full = (v.wx, v.wy, v.wz, v.weight)
     full_err, full_abs, full_ms, full_plain_ms, got = run_slot_kernel(
         kind, full, segs, light_args, step, kw)
-    gv.launches.update(n0)  # comparison launches are not main-path launches
     vs_exact = None
     if held_against_exact(kind, kw):  # the paired tier against exact
-        vs_exact = rel_err(got, slot_exact_plain(kind, full, segs, step, kw))
+        vs_exact = rel_err(got, slot_exact_plain(kind, full, segs, light_args,
+                                                 step, kw))
     del got
+    # The same launch over an empty light or segment range: the
+    # live-sample scan alone (span claims, the queue, the zeros of dead
+    # samples), what the frame's kernel costs beside its terms.
+    scan = slot_call(kind, full, segs[:3] + (torch.zeros_like(segs[3]),),
+                     None if kind != "vpu" else light_args[:2] + (0, 0),
+                     step, kw)
+    scan()
+    _, full_scan_ms = cuda_timed(scan, 3)
+    gv.launches.update(n0)  # comparison launches are not main-path launches
     tol = slot_tol(kind, kw)
     bound_ms, bound_by = slot_bound(planes[3], per_sample, table, once)
     full_bound_ms, full_bound_by = slot_bound(v.weight, per_sample, table,
@@ -1031,7 +1077,8 @@ def phase_slot_shapes(r, algo_name, tier, mode, seg_tier, rule):
          full_view_max_rel_err=full_err, full_view_max_abs_err=full_abs,
          full_view_plain_ms=full_plain_ms,
          full_view_bound_ms=full_bound_ms, full_view_bound_by=full_bound_by,
-         full_view_vs_exact_plain_max_rel_err=vs_exact)
+         full_view_vs_exact_plain_max_rel_err=vs_exact,
+         full_scan_ms=full_scan_ms)
     if not max(err, full_err) <= tol:
         raise AssertionError(f"{key} vs plain at the live shapes: rel err "
                              f"{err:.3g} (slice), {full_err:.3g} (whole) > "

@@ -25,6 +25,7 @@ from test_torch_gather_segments import (
 )
 from volumerenderer_tpu.ops import gather as jgather
 from volumerenderer_tpu_torch.ops import gather as tgather
+from volumerenderer_tpu_torch.ops.kernels import gather_lanes as tlanes
 from volumerenderer_tpu_torch.ops.kernels import gather_many as tmany
 from volumerenderer_tpu_torch.ops.kernels import gather_vpu as tvpu
 
@@ -296,12 +297,13 @@ def test_empty_ranges_give_zero(case, kind):
     assert out.shape == (R, C) and not out.any()
 
 
-@pytest.mark.parametrize("kind", ["discrete", "vbl", "vrl"])
+@pytest.mark.parametrize("kind", ["discrete", "vbl", "vrl", "vpu"])
 def test_live_sample_wrappers_refuse_2_31_samples(kind):
-    """The discrete, VBL and VRL slot kernels all run the live-sample loop,
-    which indexes samples in int32: planes of 2^31 samples or more are
-    refused on every device, one sample fewer passes that check (and then
-    meets the device check: meta tensors run nowhere)."""
+    """The discrete, VBL, VRL and point/sphere slot kernels all run the
+    live-sample loop, which indexes samples in int32: planes of 2^31
+    samples or more are refused on every device, one sample fewer passes
+    that check (and then meets the device check: meta tensors run
+    nowhere)."""
     segs = (torch.zeros(8, 3, device="meta"), torch.ones(8, 3, device="meta"),
             torch.ones(8, device="meta"),
             torch.ones(8, dtype=torch.bool, device="meta"))
@@ -309,6 +311,9 @@ def test_live_sample_wrappers_refuse_2_31_samples(kind):
 
     def call(shape):
         planes = [torch.empty(shape, device="meta") for _ in range(4)]
+        if kind == "vpu":
+            return tvpu.gather_vpu(*planes, segs[0], segs[2], 0, 8,
+                                   sphere=True, radius=RADIUS)
         if kind == "discrete":
             return tvpu.gather_segments_discrete(*planes, *segs, STEP,
                                                  sphere_radius=radius)
@@ -320,3 +325,18 @@ def test_live_sample_wrappers_refuse_2_31_samples(kind):
             call(shape)
     with pytest.raises(ValueError, match="unsupported device"):
         call((2**31 - 1, 1))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 4], ids=["base", "one", "four"])
+def test_live_sample_weights_are_handed_over_aligned(offset):
+    """The live-sample kernels load weights as float4: ``aligned`` hands a
+    weight plane over as it is when it starts on a 16-byte boundary (a
+    view 4 floats in does) and as a copy of the same values otherwise (one
+    float in, as the last of several planes of one tensor can be)."""
+    base = torch.arange(4 * 3 * 5 + 4, dtype=torch.float32)
+    assert base.data_ptr() % 16 == 0
+    w = base[offset:offset + 60].view(12, 5)
+    got = tlanes.aligned(w)
+    assert got.data_ptr() % 16 == 0
+    assert (got.data_ptr() == w.data_ptr()) == (offset % 4 == 0)
+    np.testing.assert_array_equal(got.numpy(), w.numpy())

@@ -141,7 +141,7 @@ def test_cuda_slot_vrl_kernel_on_the_live_sample_loop(case, paired):
     version at rtol 2e-5 (paired also against the exact plain version at
     3e-5): 2,497 segments (three chunks, an odd count for the paired
     tier's tail), no valid segment, every sample dead, and 24 x 2043
-    samples (N not a multiple of the 512-sample span)."""
+    samples (N not a multiple of the 1,024-sample span)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
     planes, segs, _ = slot_args()
@@ -153,7 +153,7 @@ def test_cuda_slot_vrl_kernel_on_the_live_sample_loop(case, paired):
         planes = planes[:3] + [torch.zeros_like(planes[3])]
     else:
         planes = [p[:, :RC - 5].contiguous() for p in planes]
-        assert planes[0].numel() % 512 != 0
+        assert planes[0].numel() % 1024 != 0
     kw = dict(sphere_radius=None, paired=paired)
     n0 = tvpu.launches["segment_analytic"]
     got = run("analytic", planes, segs, None, kw, plain=False)
@@ -190,13 +190,13 @@ def test_cuda_slot_discrete_kernel_staged_table(kw, lengths, cut):
     plain version at 3e-5): one stage and more than one (a segment split
     between two stages), segments of ns = 0 and paired overruns between
     long ones, a third of the samples dead, on 24 x 2048 samples (whole
-    spans of 512) and 24 x 2043 (a ragged last span)."""
+    spans of 1,024) and 24 x 2043 (a ragged last span)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
     args, _need = staging_inputs(lengths)
     planes = [a[:, :RC - cut].contiguous() for a in args[:4]]
     segs = args[4:]
-    assert (planes[0].numel() % 512 == 0) == (cut == 0)
+    assert (planes[0].numel() % 1024 == 0) == (cut == 0)
     n0 = tvpu.launches["segment_discrete"]
     got = tvpu.gather_segments_discrete(*planes, *segs, STEP, **kw)
     ref = tvpu.gather_segments_discrete_reference(*planes, *segs, STEP, **kw)
@@ -231,3 +231,92 @@ def test_cuda_slot_discrete_kernel_without_sublights_or_live_samples(kw):
                                         *args[4:], STEP, **kw)
     torch.cuda.synchronize()
     assert got.shape == args[0].shape and not got.any()
+
+
+POINT_CASES = ["range_3_1095", "all_dead", "ragged", "empty_range",
+               "slots_2048", "slots_2500"]
+
+
+def point_case(kind):
+    """Slot planes and a light range of one point-kernel case: 1,100 slots
+    with the range (3, 1095) (start > 0, count % 4 = 3); every sample
+    dead; 23 x 2043 samples (a ragged last span, N % 4 = 1); an empty
+    range; 2,048 slots, all valid (one stage of the table); 2,500 slots
+    with the range (3, 2497) (re-staged for every batch).  Sample (0, 0)
+    sits on the range's first light (a sphere's centre)."""
+    planes, _, (lpos, lint) = slot_args()
+    start, count = 3, lpos.shape[0] - 5
+    if kind == "all_dead":
+        planes[3] = torch.zeros_like(planes[3])
+    elif kind == "ragged":
+        planes = [p[:23, :RC - 5].contiguous() for p in planes]
+        assert planes[0].numel() % 1024 and planes[0].numel() % 4
+    elif kind == "empty_range":
+        count = 0
+    elif kind.startswith("slots"):
+        _, _, (lpos, lint) = slot_args(int(kind.split("_")[1]))
+        start, count = (0, 2048) if lpos.shape[0] == 2048 else (3, 2497)
+    for c in range(3):
+        planes[c][0, 0] = lpos[start, c]
+    return planes, (lpos, lint), start, count
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", POINT_CASES)
+@pytest.mark.parametrize("paired", [False, True], ids=["exact", "paired"])
+@pytest.mark.parametrize("sphere", [False, True], ids=["point", "sphere"])
+def test_cuda_slot_point_kernel_on_the_live_sample_loop(sphere, paired, kind):
+    """The slots point/sphere kernel on the live-sample loop against its
+    plain version at rtol 2e-5 in the same tier (paired also against the
+    exact plain version at 3e-5); dead samples and an empty range give
+    0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    planes, lights, start, count = point_case(kind)
+    kw = dict(sphere=sphere, radius=RADIUS)
+    n0 = tvpu.launches["vpu"]
+    got = tvpu.gather_vpu(*planes, *lights, start, count, paired=paired, **kw)
+    torch.cuda.synchronize()
+    assert tvpu.launches["vpu"] == n0 + 1
+    ref = tvpu.gather_vpu_reference(*planes, *lights, start, count,
+                                    paired=paired, **kw)
+    exact = tvpu.gather_vpu_reference(*planes, *lights, start, count, **kw)
+    live = planes[3] != 0
+    assert got.shape == planes[0].shape and torch.isfinite(got).all()
+    assert not got[~live].any()
+    if kind in ("all_dead", "empty_range"):
+        assert not got.any()
+    else:
+        assert (got[live] > 0).all()
+    got, ref, exact = (t.cpu().numpy() for t in (got, ref, exact))
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=0)
+    np.testing.assert_allclose(got, exact, rtol=3e-5 if paired else 2e-5,
+                               atol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_live_sample_kernels_take_misaligned_weights():
+    """A weight plane that does not start on a 16-byte boundary (one float
+    into its storage) is handed to the kernels as an aligned copy: the same
+    output bit for bit as the aligned plane, for the point, discrete and
+    analytic slot kernels; the C entry point itself refuses it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    planes, segs, (lpos, lint) = slot_args()
+    store = torch.empty(planes[3].numel() + 1, device="cuda")
+    store[1:] = planes[3].reshape(-1)
+    w_off = store[1:].view(planes[3].shape)
+    assert w_off.data_ptr() % 16 != 0
+    for kind, kw in (("vpu", dict(sphere=True, radius=RADIUS, paired=True)),
+                     ("discrete", dict(sphere_radius=None, paired=False)),
+                     ("analytic", dict(sphere_radius=None, paired=True))):
+        a = run(kind, planes, segs, (lpos, lint), kw, plain=False)
+        b = run(kind, planes[:3] + [w_off], segs, (lpos, lint), kw,
+                plain=False)
+        assert torch.equal(a, b), kind
+    out = torch.empty_like(planes[0])
+    with pytest.raises(RuntimeError, match="misaligned"):
+        tvpu._run("vr_gather_vpu", out.device, *planes[:3], w_off, lpos,
+                  lint, tvpu._meta(0, 8, out.device), lpos.shape[0],
+                  out.numel(), 0.0, 0, 0,
+                  torch.zeros(1, dtype=torch.int32, device="cuda"), out)

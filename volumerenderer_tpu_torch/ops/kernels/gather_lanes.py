@@ -10,7 +10,10 @@ result is the (Rc,) per-ray weighted radiance sum
 
 ``paired=True`` sums groups of 4 lights with one divide (guarded and
 overrun terms are (n = 0, q = 1)): a reassociation of the same sum,
-<= 3e-5 relative.
+<= 3e-5 relative.  The plain version sums in the kernel's order (each
+sample's lights in table order, then a lane's samples in row order), so
+the kernel against it reads only the kernel's instruction forms (an FMA,
+an approximate reciprocal).
 
 ``gather_lanes`` launches csrc/gather_lanes.cu for CUDA tensors and counts
 each launch in ``launches``; for CPU tensors it runs
@@ -48,67 +51,107 @@ def _light_range(start, count, L):
     return start, max(min(int(count), L - start), 0)
 
 
-def gather_lanes_reference(px, py, pz, wm, l_pos, l_int, start, count, *,
-                           sphere: bool, radius=0.0, lane_need=None,
-                           paired: bool = False,
-                           max_elems: int = 1 << 24) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, chunked over lanes so that
-    the (Cp, chunk, L) temporaries stay under ``max_elems`` elements."""
-    Cp, Rc = px.shape
-    dev = px.device
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it at a 16-byte aligned address: the live-sample
+    kernels load and store their weight and output planes as float4 (a
+    contiguous view can start mid-allocation, e.g. the last of several
+    planes of one tensor)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _active_samples(px, py, pz, lane_need):
+    """The samples each lane uses (row j < lane_need), flattened."""
+    Cp = px.shape[0]
+    use = (torch.arange(Cp, device=px.device)[:, None]
+           < lane_need.to(torch.int64)[None, :])
+    return use, px[use], py[use], pz[use]
+
+
+def _lane_sums(use, wm, rad):
+    """sum_j w[j] * rad[j] per lane, rad given on the used samples, added in
+    row order (the kernels' running sum over a lane's samples)."""
+    full = torch.zeros_like(wm)
+    full[use] = rad
+    terms = torch.where(use, wm * full, 0.0)
+    out = wm.new_zeros(wm.shape[1])
+    for j in range(terms.shape[0]):
+        out = out + terms[j]
+    return out
+
+
+def _add_columns(acc, terms):
+    """acc + terms[:, 0] + terms[:, 1] + ..., one column at a time (the
+    kernels' running sum over the lights or segments)."""
+    for t in range(terms.shape[1]):
+        acc = acc + terms[:, t]
+    return acc
+
+
+def _d2e_bad(x, y, z, lx, ly, lz, radius):
+    """d2e = |p - l|^2 (``radius`` None) or (|p - l| - r)^2 and its guard."""
+    dx = x - lx
+    dy = y - ly
+    dz = z - lz
+    d2 = dx * dx + dy * dy + dz * dz
+    if radius is None:
+        return d2, d2 < GUARD
+    dist = sqrt(d2)
+    dd = dist - radius
+    d2e = dd * dd
+    return d2e, (d2e < GUARD) | (dist == 0.0)
+
+
+def point_sums(x, y, z, l_pos, l_int, start, count, *, sphere: bool,
+               radius=0.0, paired: bool = False,
+               max_elems: int = 1 << 24) -> torch.Tensor:
+    """Each sample's (N,) sum over lights [start, start + count) in the
+    kernels' order: one running sum over the lights in table order, or, for
+    ``paired``, over whole groups of 4 from ``start`` (overrun slots read
+    light L - 1 and, like guarded terms, are (n = 0, q = 1)).  Chunked over
+    lights so that the (samples, lights) temporaries stay under
+    ``max_elems`` elements."""
     L = l_pos.shape[0]
-    if lane_need is None:
-        lane_need = lane_need_of(wm)
-    start, count = _light_range(start, count, L)
-    radius = f32(radius)
+    rad = f32(radius) if sphere else None
     li = l_int * _INV_FOUR_PI
-    if paired:
-        # Whole groups of 4 from start; overrun slots read light L-1 and
-        # are flagged bad.
-        k = start + torch.arange(-(-count // 4) * 4, device=dev)
-        overrun = k >= start + count
-        k = torch.clamp(k, max=max(L - 1, 0))
-    else:
-        k = torch.arange(start, start + count, device=dev)
-        overrun = torch.zeros(k.shape, dtype=torch.bool, device=dev)
-    lx, ly, lz, lv = l_pos[k, 0], l_pos[k, 1], l_pos[k, 2], li[k]
-    out = torch.zeros(Rc, dtype=torch.float32, device=dev)
-    nk = max(k.shape[0], 1)
-    chunk = max(1, max_elems // max(Cp * nk, 1))
-    rows = torch.arange(Cp, device=dev)[:, None]
-    for a in range(0, Rc, chunk):
-        b = min(a + chunk, Rc)
-        dx = px[:, a:b, None] - lx
-        dy = py[:, a:b, None] - ly
-        dz = pz[:, a:b, None] - lz
-        d2 = dx * dx + dy * dy + dz * dz
-        del dx, dy, dz
-        if sphere:
-            dist = sqrt(d2)
-            dd = dist - radius
-            d2e = dd * dd
-            bad = (d2e < GUARD) | (dist == 0.0)
-            del dist, dd
-        else:
-            d2e = d2
-            bad = d2e < GUARD
+    acc = torch.zeros_like(x)
+    span = -(-count // 4) * 4 if paired else count
+    x, y, z = x[:, None], y[:, None], z[:, None]
+    per = max(4, max_elems // max(x.shape[0], 1) // 4 * 4)
+    for a in range(0, span if x.shape[0] else 0, per):
+        k = start + torch.arange(a, min(a + per, span), device=x.device)
+        kc = torch.clamp(k, max=L - 1)
+        d2e, bad = _d2e_bad(x, y, z, l_pos[kc, 0], l_pos[kc, 1],
+                            l_pos[kc, 2], rad)
         if paired:
-            bad = bad | overrun
-            n = torch.where(bad, 0.0, lv)
-            q = torch.where(bad, 1.0, d2e)
-            n = n.unflatten(-1, (-1, 4))
-            q = q.unflatten(-1, (-1, 4))
+            bad = bad | (k >= start + count)
+            n = torch.where(bad, 0.0, li[kc]).unflatten(-1, (-1, 4))
+            q = torch.where(bad, 1.0, d2e).unflatten(-1, (-1, 4))
             q12 = q[..., 0] * q[..., 1]
             q34 = q[..., 2] * q[..., 3]
             n12 = n[..., 0] * q[..., 1] + n[..., 1] * q[..., 0]
             n34 = n[..., 2] * q[..., 3] + n[..., 3] * q[..., 2]
-            acc = ((n12 * q34 + n34 * q12) / (q12 * q34)).sum(dim=-1)
+            terms = (n12 * q34 + n34 * q12) / (q12 * q34)
         else:
-            term = lv / torch.clamp(d2e, min=GUARD)
-            acc = torch.where(bad, 0.0, term).sum(dim=-1)
-        use = rows < lane_need[a:b].to(torch.int64)[None, :]
-        out[a:b] = torch.where(use, wm[:, a:b] * acc, 0.0).sum(dim=0)
-    return out
+            terms = torch.where(bad, 0.0,
+                                li[kc] / torch.clamp(d2e, min=GUARD))
+        acc = _add_columns(acc, terms)
+    return acc
+
+
+def gather_lanes_reference(px, py, pz, wm, l_pos, l_int, start, count, *,
+                           sphere: bool, radius=0.0, lane_need=None,
+                           paired: bool = False,
+                           max_elems: int = 1 << 24) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, in its summation order: one
+    running sum per used sample (row j < lane_need) over the lights
+    (``point_sums``), then each lane's w * sum in row order."""
+    if lane_need is None:
+        lane_need = lane_need_of(wm)
+    start, count = _light_range(start, count, l_pos.shape[0])
+    use, x, y, z = _active_samples(px, py, pz, lane_need)
+    acc = point_sums(x, y, z, l_pos, l_int, start, count, sphere=sphere,
+                     radius=radius, paired=paired, max_elems=max_elems)
+    return _lane_sums(use, wm, acc)
 
 
 def _check(px, py, pz, wm, l_pos, l_int, lane_need):

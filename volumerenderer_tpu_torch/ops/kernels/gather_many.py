@@ -30,8 +30,7 @@ import torch.nn.functional as F
 
 from ..lights import GUARD
 from ..march import f32
-from .gather_lanes import _INV_FOUR_PI
-from .gather_segments import _add_columns, _d2e_bad
+from .gather_lanes import _INV_FOUR_PI, _add_columns, _d2e_bad, aligned
 from .gather_vpu import _live_samples, _weighted
 
 TILE_L = 256  # light slots per tile flag (gather_kernel.TILE_L)
@@ -129,6 +128,7 @@ def gather_many(px, py, pz, w, l_pos, l_int, l_valid, *, sphere: bool,
         return out
     li = l_int * _INV_FOUR_PI
     active = tile_flags(l_valid)
+    w = aligned(w)
     next_span = torch.zeros(1, dtype=torch.int32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):

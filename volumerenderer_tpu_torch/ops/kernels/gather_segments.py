@@ -32,9 +32,12 @@ import ctypes
 import torch
 
 from ..lights import FOUR_PI, GUARD
-from ..march import f32, sqrt
+from ..march import f32
 from . import segment_math as sm
-from .gather_lanes import _light_range, _meta, lane_need_of
+from .gather_lanes import (
+    _active_samples, _add_columns, _d2e_bad, _lane_sums, _light_range, _meta,
+    aligned, lane_need_of,
+)
 
 PAIR_BIG = 1e9  # the paired discrete tier's "discarded" q
 MAX_NODES = 1024  # quadrature nodes the kernel stages in shared memory
@@ -110,34 +113,6 @@ def analytic_cols(pos_from, pos_to, intensity, valid):
 # ---- plain versions ----
 
 
-def _active_samples(px, py, pz, lane_need):
-    """The samples each lane uses (row j < lane_need), flattened."""
-    Cp = px.shape[0]
-    use = (torch.arange(Cp, device=px.device)[:, None]
-           < lane_need.to(torch.int64)[None, :])
-    return use, px[use], py[use], pz[use]
-
-
-def _lane_sums(use, wm, rad):
-    """sum_j w[j] * rad[j] per lane, rad given on the used samples, added in
-    row order (the kernels' running sum over a lane's samples)."""
-    full = torch.zeros_like(wm)
-    full[use] = rad
-    terms = torch.where(use, wm * full, 0.0)
-    out = wm.new_zeros(wm.shape[1])
-    for j in range(terms.shape[0]):
-        out = out + terms[j]
-    return out
-
-
-def _add_columns(acc, terms):
-    """acc + terms[:, 0] + terms[:, 1] + ..., one column at a time (the
-    kernels' running sum over the segments)."""
-    for t in range(terms.shape[1]):
-        acc = acc + terms[:, t]
-    return acc
-
-
 def _chunks(n: int, per: int, max_elems: int):
     step = max(1, max_elems // max(per, 1))
     for a in range(0, n, step):
@@ -164,19 +139,6 @@ def _sublight_table(pos_from, u, ns, ii, start, count, step, paired):
     ly = pos_from[kk, 1] + sf * u[kk, 1]
     lz = pos_from[kk, 2] + sf * u[kk, 2]
     return lx, ly, lz, ii[kk], s >= ns_k[seg], seg
-
-
-def _d2e_bad(x, y, z, lx, ly, lz, radius):
-    dx = x - lx
-    dy = y - ly
-    dz = z - lz
-    d2 = dx * dx + dy * dy + dz * dz
-    if radius is None:
-        return d2, d2 < GUARD
-    dist = sqrt(d2)
-    dd = dist - radius
-    d2e = dd * dd
-    return d2e, (d2e < GUARD) | (dist == 0.0)
 
 
 def gather_segments_discrete_lanes_reference(
@@ -423,6 +385,7 @@ def gather_segments_discrete_lanes(
     first, meta = sublight_prefix(ns, start, count, paired)
     next_span = torch.zeros(1, dtype=torch.int32, device=dev)
     terms = torch.empty((Cp, Rc), dtype=torch.float32, device=dev)
+    wm = aligned(wm)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -476,6 +439,7 @@ def gather_segments_analytic_lanes(
     nodes_t = node_table(rule, nodes, dev)
     next_span = torch.zeros(1, dtype=torch.int32, device=dev)
     terms = torch.empty((Cp, Rc), dtype=torch.float32, device=dev)
+    wm = aligned(wm)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -35,11 +35,14 @@ import torch
 from ..lights import GUARD
 from ..march import f32
 from . import segment_math as sm
-from .gather_lanes import _INV_FOUR_PI, _light_range, _meta
+from .gather_lanes import (
+    _INV_FOUR_PI, _add_columns, _d2e_bad, _light_range, _meta, aligned,
+    point_sums,
+)
 from .gather_segments import (
-    MAX_NODES, PAIR_BIG, _VARIANTS, _add_columns, _analytic_terms, _chunks,
-    _d2e_bad, _sublight_table, _table, analytic_cols, discrete_cols,
-    node_table, sublight_prefix,
+    MAX_NODES, PAIR_BIG, _VARIANTS, _analytic_terms, _chunks,
+    _sublight_table, _table, analytic_cols, discrete_cols, node_table,
+    sublight_prefix,
 )
 
 # Kernel launches made by each wrapper (one key per TPU kernel body).
@@ -68,36 +71,12 @@ def _weighted(wm, idx, w, acc):
 def gather_vpu_reference(px, py, pz, wm, l_pos, l_int, start, count, *,
                          sphere: bool, radius=0.0, paired: bool = False,
                          max_elems: int = 1 << 24) -> torch.Tensor:
-    """Plain PyTorch version of the point/sphere slot kernel, chunked over
-    lights so that the (samples, lights) temporaries stay under
-    ``max_elems`` elements."""
-    L = l_pos.shape[0]
-    start, count = _light_range(start, count, L)
-    rad = f32(radius) if sphere else None
-    li = l_int * _INV_FOUR_PI
+    """Plain PyTorch version of the point/sphere slot kernel: each live
+    sample's ``point_sums``, in the kernel's order."""
+    start, count = _light_range(start, count, l_pos.shape[0])
     idx, x, y, z, w = _live_samples(px, py, pz, wm)
-    acc = torch.zeros_like(x)
-    span = -(-count // 4) * 4 if paired else count
-    x, y, z = x[:, None], y[:, None], z[:, None]
-    per = max(4, max_elems // max(x.shape[0], 1) // 4 * 4)
-    for a in range(0, span if x.shape[0] else 0, per):
-        k = start + torch.arange(a, min(a + per, span), device=px.device)
-        kc = torch.clamp(k, max=L - 1)
-        d2e, bad = _d2e_bad(x, y, z, l_pos[kc, 0], l_pos[kc, 1],
-                            l_pos[kc, 2], rad)
-        if paired:
-            bad = bad | (k >= start + count)
-            n = torch.where(bad, 0.0, li[kc]).unflatten(-1, (-1, 4))
-            q = torch.where(bad, 1.0, d2e).unflatten(-1, (-1, 4))
-            q12 = q[..., 0] * q[..., 1]
-            q34 = q[..., 2] * q[..., 3]
-            n12 = n[..., 0] * q[..., 1] + n[..., 1] * q[..., 0]
-            n34 = n[..., 2] * q[..., 3] + n[..., 3] * q[..., 2]
-            terms = (n12 * q34 + n34 * q12) / (q12 * q34)
-        else:
-            terms = torch.where(bad, 0.0,
-                                li[kc] / torch.clamp(d2e, min=GUARD))
-        acc = _add_columns(acc, terms)
+    acc = point_sums(x, y, z, l_pos, l_int, start, count, sphere=sphere,
+                     radius=radius, paired=paired, max_elems=max_elems)
     return _weighted(wm, idx, w, acc)
 
 
@@ -199,7 +178,8 @@ def _check(px, py, pz, wm, cols):
 
 
 def _check_live_loop(px, what: str):
-    """The live-sample kernels (all four) index samples in int32."""
+    """The live-sample kernels (all four) index samples in int32 (the
+    wrappers hand them a 16-byte aligned weight plane, ``aligned``)."""
     if px.numel() >= 2**31:
         raise ValueError(f"{what}: {px.numel()} samples; the kernel takes "
                          f"fewer than 2^31")
@@ -269,7 +249,7 @@ def gather_vpu(px, py, pz, wm, l_pos, l_int, start, count, *, sphere: bool,
     out = torch.empty_like(px)
     if out.numel():
         next_span = torch.zeros(1, dtype=torch.int32, device=px.device)
-        _run("vr_gather_vpu", px.device, px, py, pz, wm, l_pos,
+        _run("vr_gather_vpu", px.device, px, py, pz, aligned(wm), l_pos,
              l_int * _INV_FOUR_PI, _meta(start, count, px.device), L,
              px.numel(), f32(radius), int(sphere), int(paired), next_span,
              out)
@@ -299,8 +279,8 @@ def gather_segments_discrete(px, py, pz, wm, pos_from, pos_to, intensity,
     table = _table(pos_from, u, ns.view(torch.float32), ii)
     first, meta = sublight_prefix(ns, start, count, paired)
     next_span = torch.zeros(1, dtype=torch.int32, device=dev)
-    _run("vr_gather_vpu_discrete", dev, px, py, pz, wm, table, first, meta,
-         pos_from.shape[0], px.numel(), f32(light_ray_step_size),
+    _run("vr_gather_vpu_discrete", dev, px, py, pz, aligned(wm), table,
+         first, meta, pos_from.shape[0], px.numel(), f32(light_ray_step_size),
          f32(0.0 if sphere_radius is None else sphere_radius),
          int(sphere_radius is not None), int(paired), next_span, out)
     launches["segment_discrete"] += 1
@@ -341,11 +321,11 @@ def gather_segments_analytic(px, py, pz, wm, pos_from, pos_to, intensity,
     L, N = pos_from.shape[0], px.numel()
     next_span = torch.zeros(1, dtype=torch.int32, device=dev)
     if rule is None:
-        _run("vr_gather_vpu_vrl", dev, px, py, pz, wm, table, meta, L, N,
-             int(paired), next_span, out)
+        _run("vr_gather_vpu_vrl", dev, px, py, pz, aligned(wm), table, meta,
+             L, N, int(paired), next_span, out)
         launches["segment_analytic"] += 1
     else:
-        _run("vr_gather_vpu_sphere", dev, px, py, pz, wm, table,
+        _run("vr_gather_vpu_sphere", dev, px, py, pz, aligned(wm), table,
              node_table(rule, nodes, dev), meta, L, N, nodes,
              f32(sphere_radius), _VARIANTS[rule], int(paired), next_span,
              out)
