@@ -816,7 +816,7 @@ def slot_exact_plain(kind, planes, segs, lights, step, kw):
 
     if kind == "vpu":
         return gv.gather_vpu_reference(*planes, *lights, sphere=kw["sphere"],
-                                       radius=kw["radius"],
+                                       radius=kw.get("radius", 0.0),
                                        max_elems=PLAIN_ELEMS)
     if kind == "discrete":
         return gv.gather_segments_discrete_reference(

@@ -329,10 +329,11 @@ def test_live_sample_wrappers_refuse_2_31_samples(kind):
 
 @pytest.mark.parametrize("offset", [0, 1, 4], ids=["base", "one", "four"])
 def test_live_sample_weights_are_handed_over_aligned(offset):
-    """The live-sample kernels load weights as float4: ``aligned`` hands a
-    weight plane over as it is when it starts on a 16-byte boundary (a
-    view 4 floats in does) and as a copy of the same values otherwise (one
-    float in, as the last of several planes of one tensor can be)."""
+    """The live-sample kernels take 16-byte aligned weight planes:
+    ``aligned`` hands a weight plane over as it is when it starts on a
+    16-byte boundary (a view 4 floats in does) and as a copy of the same
+    values otherwise (one float in, as the last of several planes of one
+    tensor can be)."""
     base = torch.arange(4 * 3 * 5 + 4, dtype=torch.float32)
     assert base.data_ptr() % 16 == 0
     w = base[offset:offset + 60].view(12, 5)

@@ -141,7 +141,7 @@ def test_cuda_slot_vrl_kernel_on_the_live_sample_loop(case, paired):
     version at rtol 2e-5 (paired also against the exact plain version at
     3e-5): 2,497 segments (three chunks, an odd count for the paired
     tier's tail), no valid segment, every sample dead, and 24 x 2043
-    samples (N not a multiple of the 1,024-sample span)."""
+    samples (N not a multiple of the 512-sample span)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
     planes, segs, _ = slot_args()
@@ -153,7 +153,7 @@ def test_cuda_slot_vrl_kernel_on_the_live_sample_loop(case, paired):
         planes = planes[:3] + [torch.zeros_like(planes[3])]
     else:
         planes = [p[:, :RC - 5].contiguous() for p in planes]
-        assert planes[0].numel() % 1024 != 0
+        assert planes[0].numel() % 512 != 0
     kw = dict(sphere_radius=None, paired=paired)
     n0 = tvpu.launches["segment_analytic"]
     got = run("analytic", planes, segs, None, kw, plain=False)
@@ -190,13 +190,13 @@ def test_cuda_slot_discrete_kernel_staged_table(kw, lengths, cut):
     plain version at 3e-5): one stage and more than one (a segment split
     between two stages), segments of ns = 0 and paired overruns between
     long ones, a third of the samples dead, on 24 x 2048 samples (whole
-    spans of 1,024) and 24 x 2043 (a ragged last span)."""
+    spans of 512) and 24 x 2043 (a ragged last span)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
     args, _need = staging_inputs(lengths)
     planes = [a[:, :RC - cut].contiguous() for a in args[:4]]
     segs = args[4:]
-    assert (planes[0].numel() % 1024 == 0) == (cut == 0)
+    assert (planes[0].numel() % 512 == 0) == (cut == 0)
     n0 = tvpu.launches["segment_discrete"]
     got = tvpu.gather_segments_discrete(*planes, *segs, STEP, **kw)
     ref = tvpu.gather_segments_discrete_reference(*planes, *segs, STEP, **kw)
@@ -240,7 +240,7 @@ POINT_CASES = ["range_3_1095", "all_dead", "ragged", "empty_range",
 def point_case(kind):
     """Slot planes and a light range of one point-kernel case: 1,100 slots
     with the range (3, 1095) (start > 0, count % 4 = 3); every sample
-    dead; 23 x 2043 samples (a ragged last span, N % 4 = 1); an empty
+    dead; 23 x 2043 samples (a ragged last span, N odd); an empty
     range; 2,048 slots, all valid (one stage of the table); 2,500 slots
     with the range (3, 2497) (re-staged for every batch).  Sample (0, 0)
     sits on the range's first light (a sphere's centre)."""
@@ -250,7 +250,7 @@ def point_case(kind):
         planes[3] = torch.zeros_like(planes[3])
     elif kind == "ragged":
         planes = [p[:23, :RC - 5].contiguous() for p in planes]
-        assert planes[0].numel() % 1024 and planes[0].numel() % 4
+        assert planes[0].numel() % 512 and planes[0].numel() % 2
     elif kind == "empty_range":
         count = 0
     elif kind.startswith("slots"):

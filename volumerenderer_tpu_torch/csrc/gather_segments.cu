@@ -46,7 +46,7 @@
 // analytic_kernel (gather_terms.cuh, shared with the slots VRL and VBL
 // kernels of gather_vpu.cu) runs the same loop with lane_need: the segment
 // table (ax, ay, az, ux, uy, uz, len, ii: 32 B) staged in shared memory in
-// chunks of kChunk (960) segments and read as broadcasts, each live sample's
+// chunks of kChunk (896) segments and read as broadcasts, each live sample's
 // integral summed in segment order and its w * sum written to the scratch
 // plane, then lane_sum_kernel.  A used sample of zero weight costs nothing
 // (a thread per lane evaluated it and added w * sum = 0).

@@ -53,9 +53,10 @@ def _light_range(start, count, L):
 
 def aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it at a 16-byte aligned address: the live-sample
-    kernels load and store their weight and output planes as float4 (a
-    contiguous view can start mid-allocation, e.g. the last of several
-    planes of one tensor)."""
+    kernels fetch their weights and zero their outputs several samples at
+    a time and take only 16-byte aligned planes (a contiguous view can
+    start mid-allocation, e.g. the last of several planes of one
+    tensor)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
