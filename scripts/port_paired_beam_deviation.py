@@ -41,7 +41,9 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from port_many_deviations import rel  # noqa: E402
 from volumerenderer_tpu.ops import gather as jgather  # noqa: E402
-from volumerenderer_tpu_torch.ops.kernels import gather_segments as tseg  # noqa: E402
+from volumerenderer_tpu_torch.ops.kernels import (  # noqa: E402
+    gather_segments as tseg,
+)
 
 STEP, RADIUS = 0.3, 0.3
 
@@ -63,10 +65,9 @@ def near_sublights(planes, need, segs, radius):
     """Per lane, the used samples within 0.01 of a sub-light's sphere
     surface (radius None: of a sub-light)."""
     u, ns, _, start, count = tseg.discrete_cols(*segs, STEP)
-    lx, ly, lz, *_ = tseg._sublight_table(segs[0], u, ns,
-                                         torch.ones_like(ns, dtype=torch.float32),
-                                         int(start), int(count),
-                                         np.float32(STEP), False)
+    ones = torch.ones_like(ns, dtype=torch.float32)
+    lx, ly, lz, *_ = tseg._sublight_table(segs[0], u, ns, ones, int(start),
+                                         int(count), np.float32(STEP), False)
     use, x, y, z = tseg._active_samples(*planes[:3], need)
     gap = torch.empty_like(x)
     for a in range(0, x.shape[0], 4096):

@@ -22,8 +22,8 @@
 // uniform.
 //
 // Validity: only a tile's valid slots are staged, compacted in slot order (a
-// prefix count over the block, gather_terms.cuh's block_offset).  The TPU kernel's caller
-// instead parks an invalid slot at 1e15 with zero intensity
+// prefix count over the block, gather_terms.cuh's block_offset).  The TPU
+// kernel's caller instead parks an invalid slot at 1e15 with zero intensity
 // (gather_kernel.py:114-115), whose term is exactly 0; leaving it out adds
 // the same exact zeros, so the sum is bit for bit the same, and an invalid
 // slot is never read, whatever it holds (NaN included).  Measured on the
@@ -64,8 +64,9 @@ static_assert(kTileL == kThreads, "one slot per thread stages a tile");
 
 // Stages the valid slots of tile [c0, c0 + n) into s_light in slot order;
 // returns their count, the same in every thread.  Called by the whole
-// block; s_warp holds kWarps counts (a prefix count over the block).  The caller synchronises before it (the
-// previous tile is no longer read) and after it (s_light is complete).
+// block; s_warp holds kWarps counts (a prefix count over the block).  The
+// caller synchronises before it (the previous tile is no longer read) and
+// after it (s_light is complete).
 __device__ __forceinline__ int stage_valid(
     const float* __restrict__ lpos, const float* __restrict__ li,
     const unsigned char* __restrict__ valid, int c0, int n, float4* s_light,

@@ -22,7 +22,8 @@
 // writes out[i] = w[i] * (sum over the lights or segments of
 // [start, start + count)), the same (R, C) array the TPU kernel returns.
 // The range is read on the device (no host sync).  Each sample keeps one
-// running sum across the staged chunks, in the reference order.
+// running sum across the staged chunks, in the reference order; the terms
+// take the instruction forms that gather_terms.cuh states.
 //
 // Dead samples: the TPU kernel zeroes whole 65,536-sample blocks whose
 // weights are all zero.  Here a sample with w == 0 writes 0 without
@@ -30,15 +31,17 @@
 // finite, which the guards ensure (every divide is by a guarded or floored
 // denominator).
 //
-// What bounds them on this card: f32 divides, square roots and the
-// polynomial atan over the live samples, not bytes.  A live sample (16 B
-// of planes, 4 B of output) meets every light, every sub-light of every
-// segment or every segment; the operands stay on chip (tables in shared
-// memory, sums in registers).  Most samples of a ViewCache are dead (~92%
-// at the bench config: rays that miss the volume, samples past the
-// transmittance cutoff), so every kernel runs gather_terms.cuh's
-// persistent live_sample_loop: blocks that take only live samples, kSamples
-// a thread.
+// What bounds them on this card: the live samples' terms (issue slots, the
+// special-function unit's reciprocals and roots), and for few lights the
+// scan of the weights and the zeros of the dead samples (8 B a sample).  A
+// live sample (16 B of planes, 4 B of output) meets every light, every
+// sub-light of every segment or every segment; the operands stay on chip
+// (tables in shared memory, sums in registers).  Most samples of a
+// ViewCache are dead (~92% at the bench config: rays that miss the volume,
+// samples past the transmittance cutoff), so every kernel runs
+// gather_terms.cuh's persistent live_sample_loop: blocks that take only
+// live samples, kSamples a thread, with the next spans' weights fetched
+// ahead.
 
 #include "gather_terms.cuh"
 
