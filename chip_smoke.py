@@ -71,17 +71,31 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                path's view build alone, and
                gather_stride=3 centroid and gauss2 frames with their
                windowed SSIM against the exact image (printed only);
- 14. goldens   the golden scene (64x64 cloud(n=48)) for Point, Sphere, Ray
-               and Beam, through the compact view and the slots view,
-               against tests/goldens at windowed SSIM >= 0.995 and max abs
-               error < 5e-3;
- 15. manykernel the many-light kernel (csrc/gather_many.cu) against its plain
+ 14. path      PATH at the bench config (scripts/bench_matrix.py:62-66,
+               158: the RenderParams and StaticConfig defaults), then with
+               path_stride=3 and with path_frame_batch=4: step(2) warm-up
+               (the PathView bake included), step(4) timed, host syncs per
+               frame, the view's bytes and a re-bake's ms (equal to the
+               view), peak memory, one frame split by stage with CUDA
+               events (the camera segment's replay, then per segment the
+               alive count, the compaction and sort, the walk); for the
+               first run, a cached frame against the uncached render_frame
+               and render_frames of 4 against 4 render_frame calls, bit for
+               bit;
+     pathdrag  PATH with motion_mode="coarse": the first frame, two drag
+               frames (no re-bake) and the frame that re-bakes, each on the
+               host clock;
+ 15. goldens   the golden scene (64x64 cloud(n=48)) for Point, Sphere, Ray
+               and Beam through the compact view and the slots view, and
+               for Path cached and uncached, against tests/goldens at
+               windowed SSIM >= 0.995 and max abs error < 5e-3;
+ 16. manykernel the many-light kernel (csrc/gather_many.cu) against its plain
                version at synthetic (144, 65536) planes, about half of them
                at zero weight, point and sphere, for 2,049 valid slots,
                16,384 all valid, 16,384 at random 80% validity and 100,000
                with 50 valid in the first or only in the last tile, with a
                sample on a light (a sphere's centre);
- 16. manylight the bench config through the many-light route: RAY and BEAM
+ 17. manylight the bench config through the many-light route: RAY and BEAM
                segment_mode="discrete_expanded" at 16,384 slots (compact
                view), RAY discrete_expanded through the slots view, POINT and
                SPHERE at light_capacity = max_lights = 100,000: step(4)
@@ -90,7 +104,7 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                against the same session in a mode off this route
                ("discrete": windowed SSIM >= 0.995 and max abs < 5e-3;
                POINT/SPHERE at light_capacity 1000: max abs <= 1e-5);
- 17. manyshapes after each manylight run, the many-light kernel against its
+ 18. manyshapes after each manylight run, the many-light kernel against its
                plain version on one frame's lights (the expanded sub-lights
                for Ray/Beam), on a timed slice (65,536 lanes of the widest
                band, or 65,536 rays of the ViewCache) and then on the whole
@@ -98,13 +112,14 @@ Phases, each printed as one JSON line; any failure exits nonzero:
 
 The lines before the last are the card's name and power limit as
 nvidia-smi gives them and a JSON object of the kernels, one entry for each
-run of phases 5, 8, 11 and 16 (the many-light entries after the first two,
-gather_many[point,exact] and gather_many[sphere,exact], add their run's
-label to the name; each entry with its launches in that run and its
-bound: the larger of its f32 operations at 67 TFLOP/s and its bytes at
-3.35 TB/s, counted for this run's inputs; the point lane kernel at the
-widest band, the others at the whole shape a frame launches: the widest
-band or the whole ViewCache); the last line is
+run of phases 5, 8, 11 and 17 (PATH runs no kernel; the many-light
+entries after the first two, gather_many[point,exact] and
+gather_many[sphere,exact], add their run's label to the name; each entry
+with its launches in that run and its bound: the larger of its f32
+operations at 67 TFLOP/s and its bytes at 3.35 TB/s, counted for this
+run's inputs; the point lane kernel at the widest band, the others at the
+whole shape a frame launches: the widest band or the whole ViewCache); the
+last line is
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
 repository, it exits nonzero and prints no result.
 """
@@ -169,6 +184,11 @@ UNCACHED_RUNS = (  # (algorithm, gather_eval, segment_mode, segment_eval, rule)
     ("RAY", "exact", "analytic", "paired", "midpoint"),
     ("BEAM", "exact", "discrete", "exact", "midpoint"),
     ("BEAM", "exact", "analytic", "paired", "closed"),
+)
+PATH_RUNS = (  # (label, StaticConfig fields, Renderer attributes)
+    ("path", {}, {}),
+    ("pathstride", {"path_stride": 3}, {}),
+    ("pathbatch", {}, {"path_frame_batch": 4}),
 )
 # The card's peaks (H100 SXM data sheet, at a 700 W limit): f32 outside
 # the tensor cores, and device memory.  The 67 TFLOP/s counts a fused
@@ -1221,7 +1241,7 @@ def phase_goldens():
 
     for algo, compact in [(a, c) for c in (True, False) for a in (
             vt.Algorithm.POINT, vt.Algorithm.SPHERE, vt.Algorithm.RAY,
-            vt.Algorithm.BEAM)]:
+            vt.Algorithm.BEAM, vt.Algorithm.PATH)]:
         g = vt.grid.procedural.cloud(n=48, seed=7, center_world=(0.0, 20.0, 20.0),
                                      world_extent=70.0, device=DEV)
         params = vt.RenderParams.default().replace(
@@ -1232,15 +1252,175 @@ def phase_goldens():
                                  light_capacity=512, max_points_per_segment=128,
                                  compact_view=compact)
         r = vt.Renderer(g, config, params, algorithm=algo, device=DEV)
+        if algo is vt.Algorithm.PATH:
+            r.use_view_cache = compact
         r.step(2)
         img = r.state.accum.cpu().numpy()
         want = np.load(ROOT / "tests" / "goldens" / f"{algo.name.lower()}.npy")
         s, err = ssim(img, want), float(np.abs(img - want).max())
-        emit("goldens", algorithm=algo.name, compact_view=compact, ssim=s,
+        view = ("use_view_cache" if algo is vt.Algorithm.PATH
+                else "compact_view")
+        emit("goldens", algorithm=algo.name, **{view: compact}, ssim=s,
              max_abs_err=err)
         if not (s >= 0.995 and err < 5e-3):
             raise AssertionError(f"{algo.name}: golden SSIM {s:.5f}, "
                                  f"max abs err {err:.2e}")
+
+
+def path_renderer(**config):
+    """The bench config (scripts/bench_matrix.py:62-66, 158) for PATH: the
+    RenderParams and StaticConfig defaults but the light and image size."""
+    import volumerenderer_tpu_torch as vt
+
+    return bench_renderer("exact", vt.Algorithm.PATH, **config)
+
+
+def path_frame_split(r, frame_count: int):
+    """One cached frame of ``r``'s session timed stage by stage with CUDA
+    events (render.path.PathTrace marks): ms per stage label."""
+    import torch
+
+    from volumerenderer_tpu_torch.render import path
+
+    p_eff, light_step, steps = r._path_effective(r._max_steps)
+    events = [("start", torch.cuda.Event(enable_timing=True))]
+
+    def mark(label):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((label, ev))
+
+    torch.cuda.synchronize()
+    events[0][1].record()
+    path.render_frame(
+        r.grid, p_eff, frame_count, r.config, steps,
+        shadow_lut_radius=r._shadow_lut_radius(), cache=r._path_view,
+        march_cell=r._path_cell(p_eff.ray_marching_step_size),
+        light_step=light_step, trace=path.PathTrace(mark=mark))
+    torch.cuda.synchronize()
+    return {label: events[i][1].elapsed_time(ev)
+            for i, (label, ev) in enumerate(events[1:])}
+
+
+def phase_path(label: str, config: dict, attrs: dict, frames: int = 4,
+               checks: bool = True):
+    """PATH at the bench config: step(2) warm-up (the bake included), then
+    step(frames) timed; the PathView's bytes and a re-bake's ms, host
+    syncs per frame, peak memory, one frame split by stage; with
+    ``checks``, a cached frame against the uncached render_frame and
+    render_frames of 4 against 4 render_frame calls, bit for bit."""
+    import torch
+
+    from volumerenderer_tpu_torch.render import path
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r = path_renderer(**config)
+    for k, v in attrs.items():
+        setattr(r, k, v)
+    t0 = time.perf_counter()
+    r.step(2)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    syncs0 = r.host_syncs
+    t0 = time.perf_counter()
+    r.step(frames)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    img = r.state.accum
+    if not (bool(torch.isfinite(img).all()) and float(img.max()) > 0):
+        raise AssertionError(f"{label}: image not finite or all zero")
+    view = r._path_view
+    if view is None:
+        raise AssertionError(f"{label}: the session did not cache its view")
+    p_eff, light_step, steps = r._path_effective(r._max_steps)
+    lut_r = r._shadow_lut_radius()
+    cell = r._path_cell(p_eff.ray_marching_step_size)
+    kw = dict(shadow_lut_radius=lut_r, march_cell=cell,
+              light_step=light_step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rebake = path.bake_path_view(r.grid, p_eff, r.config, steps,
+                                 shadow_lut_radius=lut_r,
+                                 light_step=light_step)
+    torch.cuda.synchronize()
+    bake_ms = (time.perf_counter() - t0) * 1e3
+    if not all(torch.equal(a, b) for a, b in zip(rebake, view)):
+        raise AssertionError(f"{label}: a re-bake differs from the view")
+    del rebake
+    fields = dict(
+        run=label, config=config, attrs=attrs,
+        ms_per_frame=dt / frames * 1e3,
+        mrays_per_s=BENCH_W * BENCH_H * frames / dt / 1e6, warmup_s=warm_s,
+        host_syncs_per_frame=(r.host_syncs - syncs0) / frames,
+        max_steps=steps, march_cell=cell, lut_radius=lut_r,
+        path_chunk=r.config.path_chunk,
+        view_rows=view.o_i.shape[0],
+        view_bytes=sum(t.numel() * t.element_size() for t in view),
+        bake_ms=bake_ms,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        image_mean=float(img.double().mean()),
+        frame_split_ms=path_frame_split(r, r.state.frame_count + 1),
+    )
+    if checks:
+        fc = r.state.frame_count + 1
+        args = (r.grid, p_eff)
+        cached = path.render_frame(*args, fc, r.config, steps, cache=view,
+                                   **kw)
+        inline = path.render_frame(*args, fc, r.config, steps, **kw)
+        if not torch.equal(cached, inline):
+            raise AssertionError(
+                f"{label}: the cached frame differs from render_frame "
+                f"uncached (max abs {float((cached - inline).abs().max())})")
+        fcs = [fc + i for i in range(4)]
+        batch = path.render_frames(*args, fcs, r.config, steps, view, **kw)
+        for i, f in enumerate(fcs):
+            single = cached if i == 0 else path.render_frame(
+                *args, f, r.config, steps, cache=view, **kw)
+            if not torch.equal(batch[i], single):
+                raise AssertionError(
+                    f"{label}: render_frames differs from render_frame at "
+                    f"frame {f}")
+        fields["bit_exact_checks"] = "cached == uncached, frames == frame"
+    emit("path", **fields)
+    del r, view
+    torch.cuda.empty_cache()
+
+
+def phase_path_drag():
+    """PATH with motion_mode="coarse": the first frame (the bake), two drag
+    frames (the coarse uncached step, no re-bake) and the frame that
+    re-bakes at the settled camera, each on the host clock."""
+    import torch
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    r = path_renderer(motion_mode="coarse")
+    fields = dict(first_frame_ms=timed(lambda: r.step(1)))
+    baked = r._path_view
+    drag = []
+    for x in (0.5, 1.0):
+        r.set(camera_pos=(x, 20.0, -75.0))
+        syncs0 = r.host_syncs
+        drag.append(timed(lambda: r.step(1)))
+        if r._path_view is not baked or r.view_exact:
+            raise AssertionError("pathdrag: a drag frame re-baked the view")
+    fields["drag_frame_ms"] = drag
+    fields["drag_host_syncs"] = r.host_syncs - syncs0
+    fields["rebake_frame_ms"] = timed(lambda: r.step(1))
+    if r._path_view is baked or not r.view_exact:
+        raise AssertionError("pathdrag: the settled frame did not re-bake")
+    img = r.state.accum
+    if not (bool(torch.isfinite(img).all()) and float(img.max()) > 0):
+        raise AssertionError("pathdrag: image not finite or all zero")
+    emit("pathdrag", **fields)
+    del r, baked
+    torch.cuda.empty_cache()
 
 
 def many_validity(L: int, kind: str, gen, dev):
@@ -1480,6 +1660,9 @@ def main() -> int:
         slot_runs.append((run, key, launches, phase_slot_shapes(r, *run)))
         del r
     phase_drag()
+    for run in PATH_RUNS:
+        phase_path(*run)
+    phase_path_drag()
     phase_goldens()
     phase_many_kernel()
     many_runs = {}

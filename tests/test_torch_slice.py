@@ -1,6 +1,7 @@
 """The whole ported slice: the port's Renderer against the JAX package's
 Renderer and the committed goldens, the UI semantics, and what is not
-ported yet (CPU)."""
+ported yet (CPU).  PATH's sessions against the JAX package's are in
+test_torch_slice_path.py."""
 
 import dataclasses
 import os
@@ -57,7 +58,8 @@ def test_renderer_matches_jax_renderer(algorithm, tier, steps):
                          ids=["point", "sphere", "ray", "beam"])
 def test_renderer_passes_goldens(algorithm):
     """The port's frames pass the committed goldens: windowed SSIM >= 0.995
-    and max abs error < 5e-3, scored by volumerenderer_tpu.utils.ssim."""
+    and max abs error < 5e-3, scored by volumerenderer_tpu.utils.ssim.
+    PATH's are in test_torch_slice_path.py."""
     g, p, c = scene()
     r = port_renderer(g, p, c, algorithm)
     r.step(2)
@@ -140,11 +142,23 @@ def test_camera_edit_rebuilds_view_light_edit_does_not(small):
 
 @pytest.mark.parametrize("name", ["PATH"])
 def test_unported_algorithms_raise(small, name):
+    """Algorithms not ported yet raise naming their ROADMAP item.  PATH
+    raised until it was ported: it now constructs, switches in and
+    renders, and no algorithm is left unported."""
+    from volumerenderer_tpu_torch.engine.params import UNPORTED_ALGORITHMS
+
+    assert UNPORTED_ALGORITHMS == {}
     algo = vt.Algorithm[name]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        small.set_algorithm(algo)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vt.Renderer(small.grid, small.config, algorithm=algo)
+    small.step(1)
+    small.set_algorithm(algo)
+    assert small.state.frame_count == 0
+    small.step(2)
+    img = small.image()
+    assert np.isfinite(img).all() and img.max() > 0
+    assert small.lights.count.tolist() == [0]
+    r = vt.Renderer(small.grid, small.config, algorithm=algo)
+    r.step(1)
+    assert r.state.frame_count == 1 and np.isfinite(r.image()).all()
 
 
 @pytest.mark.parametrize("field,value", [

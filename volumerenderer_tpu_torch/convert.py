@@ -1,9 +1,10 @@
 """Carry state across from the reference package without importing it.
 
 ``grid_from_numpy``, ``params_from_numpy``, ``lights_from_numpy``,
-``view_cache_from_numpy`` and ``compact_view_from_numpy`` take the fields
-of the reference package's ``DenseGrid``, ``RenderParams``, ``LightArray``,
-``ViewCache`` and ``CompactView`` — as an object with those attributes (the
+``view_cache_from_numpy``, ``compact_view_from_numpy`` and
+``path_view_from_numpy`` take the fields of the reference package's
+``DenseGrid``, ``RenderParams``, ``LightArray``, ``ViewCache``,
+``CompactView`` and ``PathView`` — as an object with those attributes (the
 reference objects themselves work, their arrays convert through
 ``np.asarray``) or as a dict — and build the port's objects on ``device``
 (the CPU unless asked), so that both packages compute the same frame.
@@ -19,6 +20,7 @@ import torch
 from .engine.params import RenderParams
 from .grid.dense import DenseGrid
 from .render.color import CompactView, PlaneBand, ViewCache
+from .render.path import PathView
 from .render.photon import LightArray
 
 _GRID_DTYPES = {
@@ -105,3 +107,26 @@ def compact_view_from_numpy(src, device="cpu") -> CompactView:
                               device=device) for n in ("inv_map", "src")}
     return CompactView(bands=bands, n_rays=int(_get(src, "n_rays")),
                        rows=int(_get(src, "rows")), **idx)
+
+
+_PATH_VIEW_DTYPES = {
+    "o_i": np.float32,
+    "d_i": np.float32,
+    "tmin": np.float32,
+    "tmax": np.float32,
+    "live": np.bool_,
+    "rank_k": np.int16,
+    "n_occ": np.int16,
+    "rank_prefix": np.float32,
+    "prefix_total": np.float32,
+}
+
+
+def path_view_from_numpy(src, device="cpu") -> PathView:
+    """PathView from the reference view's planes (its uint16 sample
+    indices and roll-site counts, at most 2,500, become int16)."""
+    return PathView(**{
+        name: torch.as_tensor(np.array(_get(src, name)).astype(dtype),
+                              device=device)
+        for name, dtype in _PATH_VIEW_DTYPES.items()
+    })

@@ -29,9 +29,7 @@ class Algorithm(enum.IntEnum):
 
 
 # Algorithm -> the ROADMAP item that ports it; absent = ported.
-UNPORTED_ALGORITHMS = {
-    Algorithm.PATH: "ROADMAP Queue 1 item 11 (PATH)",
-}
+UNPORTED_ALGORITHMS: dict = {}
 
 
 def check_algorithm(algorithm: Algorithm) -> Algorithm:
@@ -42,6 +40,19 @@ def check_algorithm(algorithm: Algorithm) -> Algorithm:
             f"{UNPORTED_ALGORITHMS[algorithm]}"
         )
     return algorithm
+
+
+class Fidelity(enum.Enum):
+    """PATH single-light transmittance handling.
+
+    REFERENCE reproduces path_compute_color.comp:9-31 literally, including
+    the frozen march position (the loop attenuates N times by the density
+    at one fixed point one step from the light).  CORRECTED marches the
+    light->sample segment properly.
+    """
+
+    REFERENCE = "reference"
+    CORRECTED = "corrected"
 
 
 _VEC_FIELDS = ("camera_pos", "light_source_world_pos")
@@ -114,6 +125,7 @@ class StaticConfig:
     max_march_steps: int = 2500
     max_photon_steps: int = 4096
     max_events_per_photon: int = 256
+    max_path_segments: int = 8  # PATH: scatter re-origins per camera path
     max_points_per_segment: int = 512  # Ray/Beam sub-light cap per segment
     expanded_light_capacity: int = 16384  # compacted Ray/Beam sub-light slots
     gather_samples: int = 0
@@ -169,6 +181,34 @@ class StaticConfig:
     # the "tangent"-transformed variable, or the "closed" antiderivative
     # (quad nodes ignored).
     beam_quadrature_rule: str = "midpoint"
+    # PATH (render.path).  REFERENCE reproduces the reference shader's
+    # frozen light probe; CORRECTED marches the light segment.
+    fidelity: Fidelity = Fidelity.REFERENCE
+    # Scatter segments of at most this many rays (all frames of a batch)
+    # walk full width; above it they walk the compacted alive rays.
+    path_compact_min: int = 4096
+    # Rays per chunk of the compacted walk.  Every chunk's sub-block loop
+    # runs to its slowest ray and ends with one host read per sub-block;
+    # results are bit-identical for any width.  Chosen on the H100 at the
+    # 1080p bench config (PERF.md, PATH): the JAX package's 2048 was sized
+    # for the TPU's fetch wall.
+    path_chunk: int = 262144
+    # Order the compacted alive rays by a per-ray bound on their sub-block
+    # count before chunking (bit-exact: grouping never changes a ray's
+    # arithmetic).  Key: "cells" (selected occupied cells / cell block),
+    # "span" (in-box distance / sub-block span) or "auto" ("cells" up to
+    # 262,144 rays a frame, "span" above).
+    path_sort_chunks: bool = True
+    path_sort_key: str = "auto"
+    # Scatter-segment empty-space skipping: 0 = the largest exact cell
+    # (cell * step <= one 8-voxel brick), 1 = every sample, > 1 that cell.
+    path_march_cell: int = 0
+    # Approximate fast tier: march at path_stride x the step with the roll
+    # probability 1 - (1 - p)^stride; the light term keeps the step.
+    path_stride: int = 1
+    # The shadow-probe LUT replaces the REFERENCE light term's gather
+    # while ceil(step) <= this radius (0 disables).
+    shadow_lut_max_radius: int = 2
     probe_tile: int = 262144  # rays per occupancy-count tile
     build_tile: int = 65536  # rays per march tile of the view build
     accum_dtype: str = "float32"
@@ -184,7 +224,12 @@ class StaticConfig:
             "beam_quadrature_rule": {"midpoint", "tangent", "closed"},
             "interpolation": {"nearest", "trilinear"},
             "accum_dtype": {"float32", "uint8"},
+            "path_sort_key": {"auto", "cells", "span"},
         }
+        # The reference package's Fidelity, or its value, maps to the port's.
+        object.__setattr__(self, "fidelity",
+                           Fidelity(getattr(self.fidelity, "value",
+                                            self.fidelity)))
         for field, ok in allowed.items():
             v = getattr(self, field)
             if v not in ok:
@@ -193,6 +238,8 @@ class StaticConfig:
                 )
         if self.gather_stride < 1:
             raise ValueError("StaticConfig.gather_stride must be >= 1")
+        if self.path_stride < 1:
+            raise ValueError("StaticConfig.path_stride must be >= 1")
         for (field, value), item in _UNPORTED_CONFIG.items():
             if getattr(self, field) == value:
                 raise NotImplementedError(

@@ -23,6 +23,11 @@ build; the first frame of a settled camera rebuilds the exact view, in
 ``settle_chunks`` row chunks with coarse frames in between (coarse mode).
 ``first_frame_uncached``: a new session presents its first frame through
 the uncached step before it builds the view (the viewer's setting).
+
+PATH (``_path_step``) bakes its camera segment into a PathView keyed like
+the view plus the light, and renders uncached when the view exceeds
+``path_cache_budget_bytes``; a coarse drag skips the re-bake, and the
+settled camera re-bakes blocking.
 """
 
 from __future__ import annotations
@@ -40,10 +45,15 @@ from ..ops.march import f32
 from ..render.color import (
     build_compact_view_device, merge_row_views, required_march_steps,
 )
-from .params import Algorithm, RenderParams, StaticConfig, check_algorithm
+from ..render.path import padded_rays, view_bytes
+from .params import (
+    Algorithm, Fidelity, RenderParams, StaticConfig, check_algorithm,
+)
 from .state import RenderState
 from .step import (
-    build_view_step, render_step, render_step_cached, render_steps_cached,
+    bake_path_view_step, build_view_step, render_path_step_cached,
+    render_path_steps_cached, render_step, render_step_cached,
+    render_steps_cached,
 )
 
 
@@ -61,6 +71,19 @@ class Renderer:
     # Budget for the compact view's resident planes (all rays x global cap
     # x 16 B).  Larger views need the host-banded build, not ported yet.
     device_view_budget_bytes: int = 6 << 30
+
+    # Budget for PATH's baked camera segment, every byte of it: the rank
+    # planes (6 B per ray and step), the per-ray planes (39 B) and the
+    # tile padding (render.path.view_bytes).  Above it PATH renders
+    # uncached, with identical results.  Sized for the 80 GB H100: the
+    # 1080p bench view (169 steps) takes 2.18 GB, over the reference
+    # package's 2 GiB, which was sized for a TPU's HBM.
+    path_cache_budget_bytes: int = 8 << 30
+
+    # PATH frames per batch (engine.step.render_path_steps_cached, with
+    # the scatter segments of the batch walked together; identical to
+    # single frames).
+    path_frame_batch: int = 1
 
     def __init__(
         self,
@@ -87,6 +110,9 @@ class Renderer:
         self.view_exact = True
         self._settle = None  # the progressive settle in flight
         self._last_step_key = None  # the previous frame's view key
+        self._path_view = None  # PATH's baked camera segment
+        self._path_view_key = None
+        self._last_path_step_key = None
         # Present a new session's first frame through the uncached step
         # (one march + shade) before building the view.  It differs from
         # the cached frame by the sum over samples: PyTorch sums the slot
@@ -172,9 +198,12 @@ class Renderer:
             self.config.max_march_steps,
         )
 
-    def _march_cell(self) -> int:
-        """Largest exact coarse cell: cell * step <= one 8-voxel brick."""
-        return max(1, int(8.0 // max(self.params.ray_marching_step_size, 1e-6)))
+    def _march_cell(self, step: float | None = None) -> int:
+        """Largest exact coarse cell: cell * step <= one 8-voxel brick (the
+        params' step unless given)."""
+        if step is None:
+            step = self.params.ray_marching_step_size
+        return max(1, int(8.0 // max(float(step), 1e-6)))
 
     def _occupied_clip(self):
         """Occupied-brick bbox + step bound, cached per grid: marches clip
@@ -266,6 +295,15 @@ class Renderer:
             steps = required_march_steps(self.grid, coarse,
                                          self.config.max_march_steps)
             self.view_exact = stride == 1
+            if self.algorithm is Algorithm.PATH:
+                # PATH's LUT radius and march cell re-derived for the
+                # coarse step (a radius over shadow_lut_max_radius turns
+                # the LUT off).
+                for _ in range(n):
+                    self._path_uncached(params, steps,
+                                        self._shadow_lut_radius(coarse),
+                                        self._march_cell(coarse), None)
+                return self.state
             for _ in range(n):
                 self.state, lights = render_step(
                     self.grid, params, self.state, algorithm=self.algorithm,
@@ -349,8 +387,150 @@ class Renderer:
         self.host_syncs += lights.walk_syncs
         self.lights = lights.frame(k - 1)
 
+    # ---- PATH ----
+
+    def _shadow_lut_radius(self, step: float | None = None) -> int:
+        """ceil(step) when PATH's shadow-probe LUT applies (REFERENCE
+        fidelity, radius within config.shadow_lut_max_radius), else 0."""
+        if self.config.fidelity is not Fidelity.REFERENCE:
+            return 0
+        if step is None:
+            step = self.params.ray_marching_step_size
+        r = math.ceil(float(step))
+        return r if 0 < r <= self.config.shadow_lut_max_radius else 0
+
+    def _path_cell(self, step: float) -> int:
+        """The scatter walk's march cell: config.path_march_cell, or for 0
+        the largest exact cell at ``step``."""
+        return self.config.path_march_cell or self._march_cell(step)
+
+    def _path_effective(self, max_steps: int):
+        """The path_stride tier's (params, light_step, max_steps): the march
+        step scales by the stride, the roll probability becomes
+        1 - (1 - p)^stride (the expected scatter events per unit length of
+        independent per-step rolls), and the light term keeps the original
+        step.  Stride 1 returns the params untouched."""
+        k = self.config.path_stride
+        if k <= 1:
+            return self.params, None, max_steps
+        step0 = np.float32(self.params.ray_marching_step_size)
+        q = np.float32(1.0) - np.float32(self.params.scattering_probability)
+        # q**k by squaring, in f32, as the reference package's integer_pow.
+        acc, y = None, k
+        while y > 0:
+            if y & 1:
+                acc = q if acc is None else np.float32(acc * q)
+            y >>= 1
+            if y > 0:
+                q = np.float32(q * q)
+        params = self.params.replace(
+            ray_marching_step_size=step0 * np.float32(k),
+            scattering_probability=np.float32(1.0) - acc,
+        )
+        steps = required_march_steps(self.grid, float(step0) * k,
+                                     self.config.max_march_steps)
+        return params, float(step0), min(steps, max_steps)
+
+    def _make_path_view_key(self, max_steps: int, lut_radius: int,
+                            params: RenderParams):
+        """The view key plus every field the contribution prefix bakes in
+        (the light's position and intensity); the scattering probability
+        and the frame counter stay per frame."""
+        p = params
+        return (
+            tuple(p.camera_pos.tolist()),
+            tuple(p.camera_rotation.reshape(-1).tolist()),
+            p.fov,
+            p.ray_max_distance,
+            p.ray_marching_step_size,
+            p.absorption_coefficient,
+            tuple(p.light_source_world_pos.tolist()),
+            p.photon_initial_intensity,
+            self.config.width,
+            self.config.height,
+            max_steps,
+            lut_radius,
+            self.config.fidelity,
+            self._grid_token,
+        )
+
+    def _current_path_view(self, max_steps: int, lut_radius: int,
+                           params: RenderParams, light_step):
+        key = self._make_path_view_key(max_steps, lut_radius, params)
+        if key != self._path_view_key or self._path_view is None:
+            self._path_view = None  # release the stale planes first
+            self._path_view_key = None
+            self._path_view = bake_path_view_step(
+                self.grid, params, config=self.config, max_steps=max_steps,
+                shadow_lut_radius=lut_radius, light_step=light_step)
+            self._path_view_key = key
+        return self._path_view
+
+    def _took_path(self, out) -> None:
+        self.state, self.lights, reads = out
+        self.host_syncs += reads
+
+    def _path_uncached(self, params, max_steps, lut_r, cell, light_step):
+        self._took_path(render_step(
+            self.grid, params, self.state, algorithm=Algorithm.PATH,
+            config=self.config, max_steps=max_steps,
+            shadow_lut_radius=lut_r, march_cell=cell,
+            light_step=light_step))
+
+    def _path_step(self, n: int, max_steps: int) -> RenderState:
+        """PATH frames: over the baked PathView when it fits
+        path_cache_budget_bytes (a drag in coarse motion mode skips the
+        re-bake; the first frame of a new session may go uncached), else
+        uncached."""
+        p_eff, light_step, max_steps = self._path_effective(max_steps)
+        lut_r = self._shadow_lut_radius()
+        cell = self._path_cell(p_eff.ray_marching_step_size)
+        n_rays = self.config.width * self.config.height
+        cache_bytes = view_bytes(padded_rays(n_rays, max_steps), max_steps)
+        self.view_exact = True
+        if not (self.use_view_cache
+                and cache_bytes <= self.path_cache_budget_bytes):
+            for _ in range(n):
+                self._path_uncached(p_eff, max_steps, lut_r, cell, light_step)
+            return self.state
+        key = self._make_path_view_key(max_steps, lut_r, p_eff)
+        moving = (self.config.motion_mode == "coarse"
+                  and self._path_view_key is not None
+                  and key != self._path_view_key
+                  and key != self._last_path_step_key
+                  and not self._suppress_motion_once)
+        self._suppress_motion_once = False
+        self._last_path_step_key = key
+        if moving:
+            return self._motion_steps(n, max_steps)
+        if (self.first_frame_uncached and not self._ttff_done
+                and self._path_view is None and self._path_view_key is None):
+            self._ttff_done = True
+            self._path_uncached(p_eff, max_steps, lut_r, cell, light_step)
+            n -= 1
+            if n <= 0:
+                return self.state
+        cache = self._current_path_view(max_steps, lut_r, p_eff, light_step)
+        remaining = n
+        while remaining > 0:
+            k = (self.path_frame_batch
+                 if remaining >= self.path_frame_batch else 1)
+            kw = dict(config=self.config, max_steps=max_steps,
+                      shadow_lut_radius=lut_r, march_cell=cell,
+                      light_step=light_step)
+            if k == 1:
+                self._took_path(render_path_step_cached(
+                    self.grid, p_eff, self.state, cache, **kw))
+            else:
+                self._took_path(render_path_steps_cached(
+                    self.grid, p_eff, self.state, cache, n_frames=k, **kw))
+            remaining -= k
+        return self.state
+
     def _step(self, n: int = 1) -> RenderState:
         max_steps = self._max_steps
+        if self.algorithm is Algorithm.PATH:
+            return self._path_step(n, max_steps)
         if not self.use_view_cache:
             for _ in range(n):
                 self.state, lights = render_step(

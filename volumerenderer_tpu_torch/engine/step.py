@@ -1,9 +1,11 @@
-"""Per-frame render steps (twin of the gather steps of
-volumerenderer_tpu.engine.step): the uncached step, which marches every
-ray and shades it in slots layout, and the steps over a baked view.
+"""Per-frame render steps (twin of volumerenderer_tpu.engine.step): the
+uncached step, which marches every ray (and shades it in slots layout, or
+path-traces it for PATH), and the steps over a baked view or PathView.
 
-A frame is: frameCount++, clear on frame 1, photon-walk light generation,
-shading, progressive accumulation.
+A frame is: frameCount++, clear on frame 1, photon-walk light generation
+(none for PATH), shading, progressive accumulation.  The PATH steps return
+(new_state, lights, host_reads): the lights are empty and the host reads
+are the frame's alive counts and early exits (render.path.PathTrace).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 
 from ..grid.dense import DenseGrid
 from ..render import color as color_mod
+from ..render import path as path_mod
 from ..render import photon
 from .params import Algorithm, RenderParams, StaticConfig
 from .state import RenderState, accumulate
@@ -20,11 +23,23 @@ from .state import RenderState, accumulate
 
 def render_step(grid: DenseGrid, params: RenderParams, state: RenderState,
                 *, algorithm: Algorithm, config: StaticConfig,
-                max_steps: int):
+                max_steps: int, shadow_lut_radius: int = 0,
+                march_cell: int = 1, light_step=None):
     """One uncached frame (march + shade, render_frame): returns
-    (new_state, lights)."""
+    (new_state, lights), and for PATH (new_state, lights, host_reads).
+
+    ``shadow_lut_radius``, ``march_cell`` and ``light_step`` are PATH's
+    (render.path.render_frame)."""
     fc = state.frame_count + 1
     accum = torch.zeros_like(state.accum) if fc == 1 else state.accum
+    if algorithm is Algorithm.PATH:
+        trace = path_mod.PathTrace()
+        frame = path_mod.render_frame(
+            grid, params, fc, config, max_steps,
+            shadow_lut_radius=shadow_lut_radius, march_cell=march_cell,
+            light_step=light_step, trace=trace)
+        return (RenderState(accumulate(accum, frame, fc), fc),
+                photon.empty_lights(config, grid.device), trace.host_reads)
     lights = photon.generate_lights(grid, params, [fc], config,
                                     max_steps=max_steps)
     frame = color_mod.render_frame(grid, params, lights, algorithm, config,
@@ -96,3 +111,57 @@ def render_steps_cached(grid: DenseGrid, params: RenderParams,
     hit = (view.inv_map < view.src.shape[0])[: view.n_rays]
     new_flat = torch.where(hit, expanded, accum_flat * factor)
     return RenderState(new_flat.reshape(state.accum.shape), fc_end), lights
+
+
+def bake_path_view_step(grid: DenseGrid, params: RenderParams, *,
+                        config: StaticConfig, max_steps: int,
+                        shadow_lut_radius: int = 0, light_step=None):
+    """Bake PATH's frame-invariant camera segment (render.path.
+    bake_path_view) once per camera/volume/light change."""
+    return path_mod.bake_path_view(
+        grid, params, config, max_steps,
+        shadow_lut_radius=shadow_lut_radius, light_step=light_step)
+
+
+def render_path_step_cached(grid: DenseGrid, params: RenderParams,
+                            state: RenderState, cache, *,
+                            config: StaticConfig, max_steps: int,
+                            shadow_lut_radius: int = 0, march_cell: int = 1,
+                            light_step=None):
+    """One PATH frame over a baked PathView: the camera segment replays
+    the view, then the scatter segments.  Identical to render_step.
+    Returns (new_state, lights, host_reads)."""
+    fc = state.frame_count + 1
+    accum = torch.zeros_like(state.accum) if fc == 1 else state.accum
+    trace = path_mod.PathTrace()
+    frame = path_mod.render_frame(
+        grid, params, fc, config, max_steps,
+        shadow_lut_radius=shadow_lut_radius, cache=cache,
+        march_cell=march_cell, light_step=light_step, trace=trace)
+    return (RenderState(accumulate(accum, frame, fc), fc),
+            photon.empty_lights(config, grid.device), trace.host_reads)
+
+
+def render_path_steps_cached(grid: DenseGrid, params: RenderParams,
+                             state: RenderState, cache, *,
+                             config: StaticConfig, max_steps: int,
+                             n_frames: int, shadow_lut_radius: int = 0,
+                             march_cell: int = 1, light_step=None):
+    """``n_frames`` PATH frames over a baked PathView with their scatter
+    segments walked together (render.path.render_frames), accumulated
+    frame by frame in order: identical to n_frames single steps.
+    Returns (new_state, lights, host_reads)."""
+    m = state.frame_count
+    fcs = [m + 1 + i for i in range(n_frames)]
+    trace = path_mod.PathTrace()
+    frames = path_mod.render_frames(
+        grid, params, fcs, config, max_steps, cache,
+        shadow_lut_radius=shadow_lut_radius, march_cell=march_cell,
+        light_step=light_step, trace=trace)
+    accum = state.accum
+    for i, fc in enumerate(fcs):
+        if fc == 1:
+            accum = torch.zeros_like(accum)
+        accum = accumulate(accum, frames[i], fc)
+    return (RenderState(accum, m + n_frames),
+            photon.empty_lights(config, grid.device), trace.host_reads)

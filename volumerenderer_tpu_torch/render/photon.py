@@ -223,3 +223,17 @@ def generate_lights(
         truncated=dropped.reshape(F, P1).any(dim=-1),
         walk_syncs=syncs,
     )
+
+
+def empty_lights(config: StaticConfig, device="cpu") -> LightArray:
+    """PATH's light generation is a no-op (path_light_gen.comp:9-11):
+    lightCount stays 0 after the per-frame counter reset
+    (src/main.cpp:722-728).  One frame of empty slots."""
+    L = config.light_capacity
+    z = lambda *shape, dtype=torch.float32: torch.zeros(
+        shape, dtype=dtype, device=device)
+    return LightArray(
+        pos_from=z(1, L, 3), pos_to=z(1, L, 3), intensity=z(1, L),
+        valid=z(1, L, dtype=torch.bool), count=z(1, dtype=torch.int32),
+        truncated=z(1, dtype=torch.bool),
+    )
