@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (volumerenderer_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase
+    python3 chip_smoke.py asset    # device, build and the asset phase only
 
 Phases, each printed as one JSON line; any failure exits nonzero:
 
@@ -108,7 +109,26 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                plain version on one frame's lights (the expanded sub-lights
                for Ray/Beam), on a timed slice (65,536 lanes of the widest
                band, or 65,536 rays of the ViewCache) and then on the whole
-               widest band or the whole ViewCache, as a frame launches it.
+               widest band or the whole ViewCache, as a frame launches it;
+ 19. asset     the bunny-class volume of scripts/make_asset.py (392 x 360 x
+               312 voxels, seed 42; this file's own copy of make_volume,
+               computed in slabs on threads, equal to it bit for bit)
+               written with save_vdb (blosc+mask) and save_nvdb (zip), read
+               back with grid.load and through a NanoVDB blob, each equal
+               voxel for voxel with its map; RAY at 1920x1080 (camera
+               (0, 20, -40), light (-10, 28, 8)) through the host-banded
+               build: bands, caps, view bytes, build ms, ms/frame over
+               step(8) after step(2), host syncs, peak memory, launches;
+               POINT, SPHERE, BEAM and PATH step(2) each; the point lane
+               kernel (row 1, POINT) and the discrete one (row 2, RAY)
+               against their plain versions on SEG_RC lanes of the widest
+               band; the host build against the device build at 512x512
+               (rtol 1e-5, atol 1e-7), each build and frame timed; RAY with
+               gather_samples=12 (top-k planes padded to 16), its discrete
+               kernel against plain; ``python -m volumerenderer_tpu_torch
+               render`` on the .vdb (its PPM equal to the same session's
+               image in this process), ``bench`` and ``warmup`` as
+               subprocesses.
 
 The lines before the last are the card's name and power limit as
 nvidia-smi gives them and a JSON object of the kernels, one entry for each
@@ -185,6 +205,14 @@ UNCACHED_RUNS = (  # (algorithm, gather_eval, segment_mode, segment_eval, rule)
     ("BEAM", "exact", "discrete", "exact", "midpoint"),
     ("BEAM", "exact", "analytic", "paired", "closed"),
 )
+# The asset phase: scripts/make_asset.py's volume, transform and view.
+ASSET_SHAPE, ASSET_SEED = (392, 360, 312), 42
+ASSET_BLOBS = ((0, -0.25, 0, 0.62, 0.5, 0.55), (0.05, 0.32, 0.12, 0.34, 0.3, 0.3),
+               (-0.12, 0.72, 0.1, 0.1, 0.32, 0.12), (0.2, 0.74, 0.1, 0.1, 0.34, 0.12))
+ASSET_BBOX_MIN, ASSET_VOXEL = (-196, -180, -156), 0.125
+ASSET_TRANSLATION = (0.0, 20.0, 20.0)
+ASSET_CAMERA, ASSET_LIGHT = (0.0, 20.0, -40.0), (-10.0, 28.0, 8.0)
+ASSET_DIR = ROOT / "build" / "asset"
 PATH_RUNS = (  # (label, StaticConfig fields, Renderer attributes)
     ("path", {}, {}),
     ("pathstride", {"path_stride": 3}, {}),
@@ -1626,6 +1654,357 @@ def phase_many_shapes(r, label: str):
                 bound_by=full_bound_by, library_ms=None)
 
 
+def make_volume(n=ASSET_SHAPE, seed=ASSET_SEED, workers=8):
+    """scripts/make_asset.py's make_volume (a bunny-cloud-like fog: a union
+    of soft ellipsoids times three octaves of value noise, a thin shell),
+    computed in x slabs on threads: every operation is elementwise but the
+    noise's maximum, so the result equals the serial one bit for bit."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+
+    rs = np.random.RandomState(seed)
+    lx, ly, lz = (np.linspace(-1, 1, k) for k in n)
+    scales = [6 * 2 ** octave for octave in range(3)]
+    tables = [rs.rand(s + 1, s + 1, s + 1).astype(np.float32) for s in scales]
+    cuts = np.linspace(0, n[0], workers + 1).astype(int)
+
+    def distance_and_noise(i0, i1):
+        x, y, z = np.meshgrid(lx[i0:i1], ly, lz, indexing="ij")
+        d = np.full(x.shape, 1e9, np.float32)
+        for cx, cy, cz, rx, ry, rz in ASSET_BLOBS:
+            d = np.minimum(d, np.sqrt(((x - cx) / rx) ** 2 + ((y - cy) / ry) ** 2
+                                      + ((z - cz) / rz) ** 2) - 1.0)
+        noise = np.zeros(x.shape, np.float32)
+        for octave, (s, g) in enumerate(zip(scales, tables)):
+            xi = np.clip((x * 0.5 + 0.5) * s, 0, s - 1e-3)
+            yi = np.clip((y * 0.5 + 0.5) * s, 0, s - 1e-3)
+            zi = np.clip((z * 0.5 + 0.5) * s, 0, s - 1e-3)
+            x0, y0, z0 = xi.astype(int), yi.astype(int), zi.astype(int)
+            fx, fy, fz = xi - x0, yi - y0, zi - z0
+            v = 0.0
+            for dx in (0, 1):
+                for dy in (0, 1):
+                    for dz in (0, 1):
+                        w = ((fx if dx else 1 - fx) * (fy if dy else 1 - fy)
+                             * (fz if dz else 1 - fz))
+                        v = v + w * g[x0 + dx, y0 + dy, z0 + dz]
+            noise += v.astype(np.float32) / 2 ** octave
+        return d, noise
+
+    def finish(part, peak):
+        d, noise = part
+        noise /= peak
+        shell = np.exp(-np.abs(d) * 6.0) * (d < 0.15)
+        dense = (shell * (0.25 + 0.75 * noise)).astype(np.float32)
+        dense[dense < 0.02] = 0.0
+        return dense
+
+    with ThreadPoolExecutor(workers) as pool:
+        parts = list(pool.map(distance_and_noise, cuts[:-1], cuts[1:]))
+        peak = max(noise.max() for _, noise in parts)
+        return np.concatenate(list(pool.map(finish, parts,
+                                            [peak] * len(parts))))
+
+
+def same_volume(g, g0) -> bool:
+    """A reloaded grid holds the source's voxels (over its own bbox, which
+    may be the active one), map and translation, exactly."""
+    import torch
+
+    lo = (g.bbox_min - g0.bbox_min).tolist()
+    if min(lo) < 0:
+        return False
+    ref = g0.voxels[tuple(slice(a, a + k) for a, k in zip(lo, g.voxels.shape))]
+    return (tuple(ref.shape) == tuple(g.voxels.shape)
+            and bool(torch.equal(ref, g.voxels))
+            and bool(torch.equal(g.map_mat, g0.map_mat))
+            and bool(torch.equal(g.map_vec, g0.map_vec)))
+
+
+def asset_session(g, width, height, algorithm, **config):
+    import volumerenderer_tpu_torch as vt
+
+    params = vt.RenderParams.default().replace(
+        camera_pos=ASSET_CAMERA, light_source_world_pos=ASSET_LIGHT)
+    return vt.Renderer(g, vt.StaticConfig(width=width, height=height,
+                                          **config),
+                       params, algorithm=algorithm, device=DEV)
+
+
+def check_image(what: str, r) -> None:
+    import torch
+
+    img = r.state.accum
+    if not (bool(torch.isfinite(img).all()) and float(img.max()) > 0):
+        raise AssertionError(f"asset {what}: image not finite or all zero")
+
+
+def phase_asset():
+    """The bunny-class asset: files, the host-banded build at 1080p, every
+    algorithm, rows 1 and 2 on its widest band, host against device build,
+    the command line."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    import volumerenderer_tpu_torch as vt
+    from volumerenderer_tpu_torch import __main__ as cli
+    from volumerenderer_tpu_torch.grid import vdbio_native
+    from volumerenderer_tpu_torch.io import ppm
+    from volumerenderer_tpu_torch.ops.kernels import gather_lanes as gl
+    from volumerenderer_tpu_torch.ops.kernels import gather_segments as gs
+    from volumerenderer_tpu_torch.render import photon
+    from volumerenderer_tpu_torch.render.path import padded_rays, view_bytes
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    t_phase = time.perf_counter()
+    ASSET_DIR.mkdir(parents=True, exist_ok=True)
+    dense, make_s = timed(lambda: make_volume(ASSET_SHAPE, ASSET_SEED))
+    g0 = vt.grid.from_dense(dense, bbox_min=ASSET_BBOX_MIN,
+                            voxel_size=ASSET_VOXEL,
+                            translation=ASSET_TRANSLATION, device=DEV)
+    vdb, nvdb = ASSET_DIR / "asset.vdb", ASSET_DIR / "asset.nvdb"
+    _, write_vdb_s = timed(lambda: vt.grid.save_vdb(
+        g0, str(vdb), compression="blosc+mask"))
+    _, write_nvdb_s = timed(lambda: vt.grid.save_nvdb(g0, str(nvdb),
+                                                      codec="zip"))
+    g, read_vdb_s = timed(lambda: vt.grid.load(str(vdb), device=DEV))
+    g_nvdb, read_nvdb_s = timed(lambda: vt.grid.load(str(nvdb), device=DEV))
+    blob = vdbio_native.blob_from_dense(
+        dense, ASSET_BBOX_MIN, g0.map_mat.cpu().numpy().astype(np.float64),
+        g0.map_vec.cpu().numpy().astype(np.float64))
+    g_blob, read_blob_s = timed(lambda: vt.grid.from_nanovdb_blob(
+        blob, device=DEV))
+    same = {"vdb": same_volume(g, g0), "nvdb": same_volume(g_nvdb, g0),
+            "blob": same_volume(g_blob, g0)}
+    emit("asset_files", shape=list(dense.shape), voxels=int(dense.size),
+         occupied=int((dense > 0).sum()), make_s=make_s,
+         vdb_bytes=vdb.stat().st_size, nvdb_bytes=nvdb.stat().st_size,
+         blob_bytes=len(blob), write_vdb_s=write_vdb_s,
+         write_nvdb_s=write_nvdb_s, read_vdb_s=read_vdb_s,
+         read_nvdb_s=read_nvdb_s, read_blob_s=read_blob_s,
+         loaded_shape=list(g.voxels.shape), exact=same,
+         native=vdbio_native.build_info)
+    if not all(same.values()):
+        raise AssertionError(f"asset: round trip not exact: {same}")
+    del dense, blob, g_nvdb, g_blob, g0
+
+    # RAY (discrete, exact) at 1080p through the host-banded build.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r = asset_session(g, BENCH_W, BENCH_H, vt.Algorithm.RAY)
+    max_steps = r._max_steps
+    _, view_steps = r._occupied_clip()
+    steps = min(max_steps, view_steps)
+    if r._device_build_ok(steps):
+        raise AssertionError("asset: the 1080p view fits the device budget; "
+                             "the host-banded build is not exercised")
+    syncs0 = r.host_syncs
+    view, build_s = timed(lambda: r._current_view(max_steps))
+    if not view.caps:
+        raise AssertionError("asset: the view did not come from the "
+                             "host-banded build")
+    build_syncs = r.host_syncs - syncs0
+    r.step(2)
+    torch.cuda.synchronize()
+    for k in gs.launches:
+        gs.launches[k] = 0
+    frames = 8
+    syncs0 = r.host_syncs
+    _, dt = timed(lambda: r.step(frames))
+    launches = dict(gs.launches)
+    check_image("RAY", r)
+    if launches["discrete"] == 0:
+        raise AssertionError("asset RAY: no discrete kernel launched")
+    lanes = [int(b.wx.shape[1]) for b in view.bands]
+    emit("asset_ray", max_steps=max_steps, steps=steps,
+         march_cell=r._march_cell(), bands=len(view.bands),
+         caps=list(view.caps), lanes=lanes,
+         plane_shapes=[list(b.wx.shape) for b in view.bands],
+         hit_lanes=int((view.inv_map < view.src.shape[0]).sum()),
+         used_samples=int(sum(int(b.lane_need.sum()) for b in view.bands)),
+         view_bytes=sum(16 * b.wx.numel() + 4 * b.lane_need.numel()
+                        for b in view.bands),
+         build_ms=build_s * 1e3, build_host_syncs=build_syncs,
+         ms_per_frame=dt / frames * 1e3,
+         mrays_per_s=BENCH_W * BENCH_H * frames / dt / 1e6,
+         host_syncs_per_frame=(r.host_syncs - syncs0) / frames,
+         launches=launches,
+         launches_per_frame={k: v / frames for k, v in launches.items()},
+         view_exact=bool(r.view_exact),
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         segments_last_frame=int(r.lights.count[0]))
+
+    # Row 2 against its plain version on SEG_RC lanes of the widest band.
+    band = max(view.bands, key=lambda b: b.wx.shape[0])
+    cut = slice(0, min(SEG_RC, band.wx.shape[1]))
+    planes = [t[:, cut].contiguous() for t in
+              (band.wx, band.wy, band.wz, band.weight)]
+    need = band.lane_need[cut].contiguous()
+    lights = photon.generate_lights(r.grid, r.params,
+                                    [r.state.frame_count + 1], r.config,
+                                    max_steps=max_steps)
+    segs = (lights.pos_from[0], lights.pos_to[0], lights.intensity[0],
+            lights.valid[0])
+    n0 = dict(gs.launches)
+    err, abs_err, ms, plain_ms, _ = run_segment_kernel(
+        "discrete", planes, segs, need, r.params.light_ray_step_size,
+        dict(sphere_radius=None, paired=False))
+    gs.launches.update(n0)  # comparison launches are not main-path launches
+    emit("asset_segshapes", Cp=planes[0].shape[0], Rc=planes[0].shape[1],
+         sublights=sublights(segs, r.params.light_ray_step_size),
+         max_rel_err=err, max_abs_err=abs_err, tol=RTOL_SEGMENT, ms=ms,
+         plain_ms=plain_ms)
+    if not err <= RTOL_SEGMENT:
+        raise AssertionError(f"asset: discrete kernel vs plain rel err "
+                             f"{err:.3g} > {RTOL_SEGMENT:g}")
+    del planes, need, lights, segs
+
+    # POINT, SPHERE and BEAM over the same view; then PATH.
+    for name in ("POINT", "SPHERE", "BEAM"):
+        torch.cuda.reset_peak_memory_stats()
+        r.set_algorithm(vt.Algorithm[name])
+        gl.launches = 0
+        for k in gs.launches:
+            gs.launches[k] = 0
+        _, dt = timed(lambda: r.step(2))
+        n = gl.launches if name != "BEAM" else gs.launches["discrete"]
+        check_image(name, r)
+        if n == 0:
+            raise AssertionError(f"asset {name}: no lane kernel launched")
+        emit("asset_algorithm", algorithm=name, seconds_2frames=dt,
+             launches=n, max_memory_allocated=torch.cuda.max_memory_allocated())
+        if name == "POINT":  # row 1 on SEG_RC lanes of the widest band
+            lights = photon.generate_lights(
+                r.grid, r.params, [r.state.frame_count + 1], r.config,
+                max_steps=max_steps)
+            valid = lights.valid[0].to(torch.int32)
+            args = [t[:, cut].contiguous() for t in
+                    (band.wx, band.wy, band.wz, band.weight)]
+            args += [lights.pos_to[0], lights.intensity[0],
+                     torch.argmax(valid), valid.sum()]
+            kw = dict(sphere=False, lane_need=band.lane_need[cut].contiguous())
+            n0 = gl.launches
+            gl.gather_lanes(*args, **kw)  # outside the timing
+            got, ms = cuda_timed(lambda: gl.gather_lanes(*args, **kw), 5)
+            gl.launches = n0  # comparison launches are not main-path launches
+            ref, plain_ms = cuda_timed(lambda: gl.gather_lanes_reference(
+                *args, max_elems=PLAIN_ELEMS, **kw))
+            err = rel_err(got, ref)
+            emit("asset_shapes", Cp=args[0].shape[0], Rc=args[0].shape[1],
+                 lights=int(valid.sum()), max_rel_err=err,
+                 max_abs_err=float((got - ref).abs().max()), tol=RTOL_EXACT,
+                 ms=ms, plain_ms=plain_ms)
+            if not err <= RTOL_EXACT:
+                raise AssertionError(f"asset: point kernel vs plain rel err "
+                                     f"{err:.3g} > {RTOL_EXACT:g}")
+            del args, lights
+    del r, view, band
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r = asset_session(g, BENCH_W, BENCH_H, vt.Algorithm.PATH)
+    _, dt = timed(lambda: r.step(2))
+    check_image("PATH", r)
+    emit("asset_algorithm", algorithm="PATH", seconds_2frames=dt,
+         max_steps=r._max_steps,
+         path_view_bytes=view_bytes(padded_rays(BENCH_W * BENCH_H,
+                                                r._max_steps), r._max_steps),
+         path_view_cached=r._path_view is not None,
+         host_syncs=r.host_syncs,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    del r
+    torch.cuda.empty_cache()
+
+    # The host build against the device build where both fit.
+    images, fields = {}, {}
+    for mode in ("host", "device"):
+        r = asset_session(g, 512, 512, vt.Algorithm.RAY, compact_build=mode)
+        view, build_s = timed(lambda: r._current_view(r._max_steps))
+        r.step(1)
+        for k in gs.launches:
+            gs.launches[k] = 0
+        _, dt = timed(lambda: r.step(2))
+        images[mode] = r.image()
+        fields[mode] = dict(
+            caps=list(view.caps), bands=[list(b.wx.shape) for b in view.bands],
+            view_bytes=sum(16 * b.wx.numel() for b in view.bands),
+            build_ms=build_s * 1e3, ms_per_frame=dt / 2 * 1e3,
+            discrete_launches_per_frame=gs.launches["discrete"] / 2)
+        del r, view
+    err = float(np.abs(images["host"] - images["device"]).max())
+    ok = np.allclose(images["host"], images["device"], rtol=1e-5, atol=1e-7)
+    emit("asset_host_vs_device", size=512, **fields, max_abs_err=err,
+         rtol=1e-5, atol=1e-7, ok=bool(ok))
+    if not ok:
+        raise AssertionError(f"asset: host vs device build at 512x512: max "
+                             f"abs err {err:.3g}")
+
+    # Top-k planes (gather_samples 12, padded to 16 samples) on the card.
+    r = asset_session(g, 512, 512, vt.Algorithm.RAY, gather_samples=12)
+    for k in gs.launches:
+        gs.launches[k] = 0
+    _, dt = timed(lambda: r.step(3))
+    check_image("RAY gather_samples", r)
+    band = max(r._view.bands, key=lambda b: b.wx.shape[1])
+    planes = [t[:, cut].contiguous() for t in
+              (band.wx, band.wy, band.wz, band.weight)]
+    lights = photon.generate_lights(r.grid, r.params,
+                                    [r.state.frame_count + 1], r.config,
+                                    max_steps=r._max_steps)
+    segs = (lights.pos_from[0], lights.pos_to[0], lights.intensity[0],
+            lights.valid[0])
+    n0 = dict(gs.launches)
+    err, _, ms, plain_ms, _ = run_segment_kernel(
+        "discrete", planes, segs, band.lane_need[cut].contiguous(),
+        r.params.light_ray_step_size, dict(sphere_radius=None, paired=False))
+    gs.launches.update(n0)  # comparison launches are not main-path launches
+    emit("asset_topk", size=512, gather_samples=12,
+         view_exact=bool(r.view_exact), caps=list(r._view.caps),
+         plane_shapes=[list(b.wx.shape) for b in r._view.bands],
+         seconds_3frames=dt, discrete_launches=n0["discrete"],
+         max_rel_err=err, tol=RTOL_SEGMENT, ms=ms, plain_ms=plain_ms)
+    if r.view_exact or n0["discrete"] == 0 or not err <= RTOL_SEGMENT:
+        raise AssertionError(f"asset top-k: exact view, no launch or rel "
+                             f"err {err:.3g} > {RTOL_SEGMENT:g}")
+    del r, band, planes, lights, segs
+    torch.cuda.empty_cache()
+
+    # The command line, in subprocesses, against the same session here.
+    out = ASSET_DIR / "cli.ppm"
+    cmds = {"render": ["render", "--volume", str(vdb), "--size", "512",
+                       "--frames", "4", "--out", str(out)],
+            "bench": ["bench"], "warmup": ["warmup", "--size", "256"]}
+    cli_s = {}
+    for name, argv in cmds.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m",
+                               "volumerenderer_tpu_torch", *argv],
+                              cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        cli_s[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"asset: the {name} command exited "
+                                 f"{proc.returncode}:\n{proc.stderr}")
+        cli_s[name + "_stdout"] = proc.stdout.strip().splitlines()[-1]
+    args = argparse.Namespace(volume=str(vdb), size=512, algorithm="RAY",
+                              fast="off", device=DEV)
+    r = cli._make_renderer(args)
+    r.step(4)
+    same_ppm = bool(np.array_equal(ppm.read_ppm(str(out)), r.image_u8()))
+    emit("asset_cli", **cli_s, ppm_equals_session=same_ppm,
+         phase_s=time.perf_counter() - t_phase)
+    if not same_ppm:
+        raise AssertionError("asset: the render command's PPM differs from "
+                             "the same session's image")
+
+
 def main() -> int:
     if not (PKG / "__init__.py").is_file():
         print(f"chip_smoke: {PKG} not found; run from a checkout of the "
@@ -1643,6 +2022,9 @@ def main() -> int:
 
     smi = phase_device()
     phase_build()
+    if sys.argv[1:] == ["asset"]:
+        phase_asset()
+        return 0
     phase_kernel()
     phase_segment_kernel()
     per_tier = {tier: phase_main(tier) for tier in ("exact", "paired")}
@@ -1670,6 +2052,7 @@ def main() -> int:
         launches, r = phase_manylight(label, algo_name, config, ref_config)
         many_runs[label] = (launches, phase_many_shapes(r, label))
         del r
+    phase_asset()
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
 

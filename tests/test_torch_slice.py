@@ -169,15 +169,19 @@ def test_unported_algorithms_raise(small, name):
 def test_unported_config_values_raise(small, field, value):
     """Values not ported yet raise naming their ROADMAP item.
     segment_mode="discrete_expanded" at the default 16,384 slots raised
-    until the many-light gather was ported: it now constructs and renders."""
-    if (field, value) == ("segment_mode", "discrete_expanded"):
-        config = dataclasses.replace(small.config, segment_mode=value)
+    until the many-light gather was ported, compact_build="host" and
+    gather_samples > 0 until the host-banded build was: they now construct
+    and render."""
+    if field in ("segment_mode", "compact_build", "gather_samples"):
+        config = dataclasses.replace(small.config, **{field: value})
         assert config.expanded_light_capacity == 16384
         r = vt.Renderer(small.grid, config, small.params,
                         algorithm=vt.Algorithm.RAY)
         r.step(2)
         img = r.image()
         assert np.isfinite(img).all() and img.max() > 0
+        if field != "segment_mode":  # the host-banded build
+            assert r._view.caps
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         vt.StaticConfig(**{field: value})
@@ -200,9 +204,18 @@ def test_default_renderer_renders_ray(small):
 
 
 def test_view_over_budget_raises(small):
+    """A view over device_view_budget_bytes raised until the host-banded
+    build was ported: it now takes that build and renders the same frame
+    as the device build (rtol 1e-5, atol 1e-7)."""
+    ref = vt.Renderer(small.grid, small.config, small.params,
+                      algorithm=small.algorithm)
+    ref.step(1)
+    assert not ref._view.caps
     small.device_view_budget_bytes = 1024
-    with pytest.raises(NotImplementedError, match="host-banded"):
-        small.step(1)
+    small.step(1)
+    assert small._view.caps and small.view_exact
+    np.testing.assert_allclose(small.image(), ref.image(), rtol=1e-5,
+                               atol=1e-7)
 
 
 def test_cuda_device_requires_cuda(small):

@@ -102,7 +102,6 @@ class RenderParams:
 
 # StaticConfig value -> the ROADMAP item that ports it.
 _UNPORTED_CONFIG = {
-    ("compact_build", "host"): "ROADMAP Queue 1 item 13 (host-banded build)",
     ("interpolation", "trilinear"): "ROADMAP Queue 1 item 14 (slice options)",
     ("accum_dtype", "uint8"): "ROADMAP Queue 1 item 14 (slice options)",
 }
@@ -128,13 +127,17 @@ class StaticConfig:
     max_path_segments: int = 8  # PATH: scatter re-origins per camera path
     max_points_per_segment: int = 512  # Ray/Beam sub-light cap per segment
     expanded_light_capacity: int = 16384  # compacted Ray/Beam sub-light slots
+    # Top-k compaction: each ray keeps its gather_samples largest march
+    # weights (0: every sample).  A session's views then take the
+    # host-banded build (or the slots view), exact when the cap covers
+    # every ray's occupied samples (Renderer.view_exact).
     gather_samples: int = 0
     # False: the uncached view (render.color.ViewCache, slots layout) with
     # every ray's full march, shaded by the slot kernels.
     compact_view: bool = True
     # "auto": the compact view is built on the device when its planes fit
-    # Renderer.device_view_budget_bytes (else it raises: the host-banded
-    # build is not ported); "device": always.
+    # Renderer.device_view_budget_bytes and gather_samples is 0, else band
+    # by band from the host's sort; "device" / "host": always that build.
     compact_build: str = "auto"
     # Interactive camera motion: while the camera or march parameters change
     # between consecutive frames, frames render through a cheap path and
@@ -246,11 +249,6 @@ class StaticConfig:
                     f"StaticConfig.{field}={value!r} is not ported to "
                     f"PyTorch yet: {item}"
                 )
-        if self.gather_samples:
-            raise NotImplementedError(
-                "StaticConfig.gather_samples > 0 needs the host-banded "
-                "build, not ported yet: ROADMAP Queue 1 item 13"
-            )
 
     @property
     def photon_grid(self) -> int:

@@ -14,7 +14,10 @@ Everything runs on the session's ``device`` (the grid's unless given);
 grid, view, lights and the accumulator live there.  The march is baked
 once per camera/volume/march parameters into a compact view (or, with
 ``compact_view=False``, a slots ViewCache) and reused by every frame;
-``use_view_cache=False`` marches every frame (the uncached step).
+``use_view_cache=False`` marches every frame (the uncached step).  The
+compact view is built on the device when its planes fit
+``device_view_budget_bytes``; larger views, ``compact_build="host"`` and
+``gather_samples`` > 0 take the host-banded build (``_build_compact_view``).
 
 Interactive paths (``StaticConfig.motion_mode``): a frame whose camera or
 march parameters differ from the previous frame's is a drag frame and
@@ -43,7 +46,9 @@ from ..grid.dense import DenseGrid, occupied_bbox
 from ..ops.kernels.gather_lanes import TILE_L
 from ..ops.march import f32
 from ..render.color import (
-    build_compact_view_device, merge_row_views, required_march_steps,
+    CompactView, build_compact_view_device, build_view_rays,
+    camera_rays_index, decimate_view, merge_row_views,
+    occupancy_counts_rays, required_march_steps,
 )
 from ..render.path import padded_rays, view_bytes
 from .params import (
@@ -51,7 +56,8 @@ from .params import (
 )
 from .state import RenderState
 from .step import (
-    bake_path_view_step, build_view_step, render_path_step_cached,
+    bake_path_view_step, band_from_planes, build_view_step,
+    render_path_step_cached,
     render_path_steps_cached, render_step, render_step_cached,
     render_steps_cached,
 )
@@ -68,9 +74,15 @@ class Renderer:
     # Cached frames run in batches of this size (one photon walk per batch).
     frame_batch: int = 8
 
-    # Budget for the compact view's resident planes (all rays x global cap
-    # x 16 B).  Larger views need the host-banded build, not ported yet.
+    # Budget for the device build's resident planes (all rays x global cap
+    # x 16 B).  Within it compact_build="auto" builds on the device (one
+    # host read); above it the host-banded build sizes each band's cap from
+    # the sorted counts.
     device_view_budget_bytes: int = 6 << 30
+
+    # Budget for one band's planes in the host-banded build; larger views
+    # are built band by band.
+    view_build_budget_bytes: int = 3 << 29
 
     # Budget for PATH's baked camera segment, every byte of it: the rank
     # planes (6 B per ray and step), the per-ray planes (39 B) and the
@@ -91,6 +103,7 @@ class Renderer:
         config: StaticConfig | None = None,
         params: RenderParams | None = None,
         algorithm: Algorithm = Algorithm.RAY,  # default (src/main.cpp:119)
+        gather_samples: int | None = None,
         device=None,
     ):
         self.device = _resolve_device(device, grid)
@@ -100,6 +113,9 @@ class Renderer:
         self.config = config or StaticConfig()
         self.params = params or RenderParams.default()
         self.algorithm = check_algorithm(algorithm)
+        # Top-k compaction of the views' march (the config's unless given).
+        self.gather_samples = (self.config.gather_samples
+                               if gather_samples is None else gather_samples)
         self.state = RenderState.create(self.config.height, self.config.width,
                                         self.device)
         self.lights = None
@@ -231,14 +247,18 @@ class Renderer:
             self.config.width,
             self.config.height,
             max_steps,
+            self.gather_samples,
             self._grid_token,
         )
 
     def _device_build_ok(self, steps: int) -> bool:
-        """Whether the compact view may be built on the device: always for
-        ``compact_build="device"``; for "auto" when its planes fit the
-        device budget."""
-        if self.config.compact_build == "device":
+        """Whether the compact view may be built on the device: never for
+        ``compact_build="host"`` or with ``gather_samples``; always for
+        "device"; for "auto" when its planes fit the device budget."""
+        mode = self.config.compact_build
+        if mode == "host" or self.gather_samples:
+            return False
+        if mode == "device":
             return True
         n_rays = self.config.height * self.config.width
         lanes_n = -(-n_rays // TILE_L) * TILE_L
@@ -265,20 +285,89 @@ class Renderer:
             clip_box, view_steps = self._occupied_clip()
             steps = min(max_steps, view_steps)
             if not self.config.compact_view:
-                self.view_exact = True
+                gs = self.gather_samples
+                self.view_exact = gs == 0 or gs >= steps
                 self._view = build_view_step(
                     self.grid, self.params, clip_box, config=self.config,
-                    max_steps=steps)
+                    max_steps=steps, gather_samples=gs)
             elif self._device_build_ok(steps):
                 self._view = self._build_compact_view_device(clip_box, steps)
             else:
-                raise NotImplementedError(
-                    "compact view exceeds device_view_budget_bytes; the "
-                    "host-banded build is not ported to PyTorch yet: "
-                    "ROADMAP Queue 1 item 13"
-                )
+                self._view = self._build_compact_view(clip_box, steps)
             self._view_key = key
         return self._view
+
+    def _build_compact_view(self, clip_box, steps: int) -> CompactView:
+        """The host-banded compact build:
+
+        1. camera rays, computed once and fed to both passes below; per-ray
+           occupancy counts from the dilated brick table at coarse cells
+           (none at march cell 1: every ray at the full step budget);
+        2. on the host (one read), rays sorted by descending count, stable:
+           the lane order, ``inv_map`` and ``src``;
+        3. each band of sorted lanes marched at its own cap K_b (its first
+           lane's count rounded up to 16 steps, at least one cell, at most
+           ``steps``) and top-k to ``gather_samples`` below it, with as
+           many lanes as fit ``view_build_budget_bytes``.
+
+        Lanes past the hit rays (misses, and ray 0 repeated on views
+        narrower than TILE_L) are marched with the last band; ``inv_map``
+        points at hit lanes only, so their sums are never read."""
+        cfg = self.config
+        H, W = cfg.height, cfg.width
+        n_rays = H * W
+        cell = self._march_cell()
+        o_i, d_i = camera_rays_index(self.grid, self.params, cfg)
+        if cell > 1:
+            counts = occupancy_counts_rays(
+                self.grid, self.params, cfg, steps, o_i, d_i,
+                clip_box=clip_box, march_cell=cell).cpu().numpy()
+            syncs = 1
+        else:
+            counts = np.full(n_rays, steps, np.int32)
+            syncs = 0
+        order = np.argsort(-counts, kind="stable").astype(np.int32)
+        hit_n = max(1, int((counts > 0).sum()))
+        lanes_n = -(-hit_n // TILE_L) * TILE_L
+        order_l = order[:min(lanes_n, n_rays)]
+        if len(order_l) < lanes_n:
+            order_l = np.concatenate(
+                [order_l, np.zeros(lanes_n - len(order_l), np.int32)])
+        counts_l = np.where(np.arange(lanes_n) < hit_n, counts[order_l],
+                            0).astype(np.int32)
+        gs = self.gather_samples
+        self.view_exact = (not gs) or gs >= int(counts_l[0])
+        src = torch.as_tensor(order_l, device=self.device)
+        lane_rays = src.to(torch.int64)
+        bands, caps = [], []
+        startl = 0
+        while startl < lanes_n:
+            kb = min(max(-(-max(int(counts_l[startl]), 1) // 16) * 16, cell),
+                     steps)
+            plane_c = min(gs, kb) if gs else kb
+            max_lanes = max(TILE_L, (self.view_build_budget_bytes
+                                     // (max(plane_c, 1) * 16))
+                            // TILE_L * TILE_L)
+            size = min(lanes_n - startl, max_lanes)
+            idx = lane_rays[startl:startl + size]
+            planes = build_view_rays(
+                self.grid, self.params, cfg, steps, o_i[idx], d_i[idx],
+                gather_samples=gs if gs and gs < kb else 0,
+                clip_box=clip_box, occupied_cap=kb, march_cell=cell)
+            bands.append(band_from_planes(*planes))
+            caps.append(kb)
+            startl += size
+        inv = np.full(n_rays, lanes_n, np.int32)
+        inv[order_l[:hit_n]] = np.arange(hit_n, dtype=np.int32)
+        self.host_syncs += syncs
+        view = CompactView(
+            bands=tuple(bands), inv_map=torch.as_tensor(inv, device=self.device),
+            src=src, n_rays=n_rays, rows=H, host_syncs=syncs,
+            caps=tuple(caps))
+        if cfg.gather_stride > 1:
+            view = decimate_view(view, int(cfg.gather_stride),
+                                 fold=cfg.gather_fold)
+        return view
 
     # ---- interactive paths ----
 
@@ -307,7 +396,8 @@ class Renderer:
             for _ in range(n):
                 self.state, lights = render_step(
                     self.grid, params, self.state, algorithm=self.algorithm,
-                    config=self.config, max_steps=steps)
+                    config=self.config, max_steps=steps,
+                    gather_samples=self.gather_samples)
                 self._took(lights, 1)
             return self.state
         clip_box, view_steps = self._occupied_clip()
@@ -536,7 +626,7 @@ class Renderer:
                 self.state, lights = render_step(
                     self.grid, self.params, self.state,
                     algorithm=self.algorithm, config=self.config,
-                    max_steps=max_steps)
+                    max_steps=max_steps, gather_samples=self.gather_samples)
                 self._took(lights, 1)
             return self.state
         key = self._make_view_key(max_steps)
@@ -564,7 +654,7 @@ class Renderer:
             self.state, lights = render_step(
                 self.grid, self.params, self.state,
                 algorithm=self.algorithm, config=self.config,
-                max_steps=max_steps)
+                max_steps=max_steps, gather_samples=self.gather_samples)
             self._took(lights, 1)
             n -= 1
             if n <= 0:

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..grid.dense import DenseGrid
+from ..ops.kernels.gather_lanes import lane_need_of
 from ..render import color as color_mod
 from ..render import path as path_mod
 from ..render import photon
@@ -23,13 +24,15 @@ from .state import RenderState, accumulate
 
 def render_step(grid: DenseGrid, params: RenderParams, state: RenderState,
                 *, algorithm: Algorithm, config: StaticConfig,
-                max_steps: int, shadow_lut_radius: int = 0,
-                march_cell: int = 1, light_step=None):
+                max_steps: int, gather_samples: int = 0,
+                shadow_lut_radius: int = 0, march_cell: int = 1,
+                light_step=None):
     """One uncached frame (march + shade, render_frame): returns
     (new_state, lights), and for PATH (new_state, lights, host_reads).
 
-    ``shadow_lut_radius``, ``march_cell`` and ``light_step`` are PATH's
-    (render.path.render_frame)."""
+    ``gather_samples``: top-k compaction of the march (0 keeps every
+    sample; PATH ignores it).  ``shadow_lut_radius``, ``march_cell`` and
+    ``light_step`` are PATH's (render.path.render_frame)."""
     fc = state.frame_count + 1
     accum = torch.zeros_like(state.accum) if fc == 1 else state.accum
     if algorithm is Algorithm.PATH:
@@ -43,19 +46,32 @@ def render_step(grid: DenseGrid, params: RenderParams, state: RenderState,
     lights = photon.generate_lights(grid, params, [fc], config,
                                     max_steps=max_steps)
     frame = color_mod.render_frame(grid, params, lights, algorithm, config,
-                                   max_steps)
+                                   max_steps, gather_samples=gather_samples)
     return RenderState(accumulate(accum, frame, fc), fc), lights
 
 
 def build_view_step(grid: DenseGrid, params: RenderParams, clip_box=None,
                     row_start: int = 0, *, config: StaticConfig,
-                    max_steps: int, num_rows: int | None = None,
+                    max_steps: int, gather_samples: int = 0,
+                    num_rows: int | None = None,
                     occupied_cap: int | None = None, march_cell: int = 8):
     """Bake the per-view march in slots layout (render.color.build_view)
     once per camera/volume/step change; reused by every cached frame."""
     return color_mod.build_view(
         grid, params, config, max_steps, row_start, num_rows,
-        clip_box=clip_box, occupied_cap=occupied_cap, march_cell=march_cell)
+        clip_box=clip_box, occupied_cap=occupied_cap, march_cell=march_cell,
+        gather_samples=gather_samples)
+
+
+def band_from_planes(wx, wy, wz, w) -> color_mod.PlaneBand:
+    """Lane-major (C, N) ray-band planes (render.color.build_view_rays) ->
+    a PlaneBand: the sample axis zero-padded to a multiple of 8, and
+    ``lane_need`` from the weights themselves (last nonzero + 1), which is
+    tighter than the occupancy bound (no transmittance-cutoff tail, no
+    dilation slack) and what the lane kernels' per-block bounds follow."""
+    pad = color_mod.pad8
+    return color_mod.PlaneBand(wx=pad(wx), wy=pad(wy), wz=pad(wz),
+                               weight=pad(w), lane_need=lane_need_of(w))
 
 
 def render_step_cached(grid: DenseGrid, params: RenderParams,

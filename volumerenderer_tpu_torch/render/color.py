@@ -22,6 +22,13 @@ so XLA's shapes stay static; here each band's maximum count is read on
 the host (one read per build) and the band marches at exactly that cap.
 The planes may be narrower than the reference build's; ``inv_map``,
 ``src``, ``lane_need`` and every plane value within ``lane_need`` agree.
+Views over the device budget are built band by band from the host's sort
+(engine.session ``_build_compact_view``) out of ``build_view_rays``.
+
+  top-k (``gather_samples`` C below the march's samples): each ray keeps
+    its C largest weights and their march distances, in the order of a
+    stable descending sort (equal weights, such as a short ray's zeros,
+    keep ascending sample order, as ``jax.lax.top_k`` gives them).
 
   uncached (the plain ``render_frame``; ``compact_view=False``): every
     ray's full march straight into row-major (R, C) planes (a ViewCache),
@@ -78,6 +85,7 @@ class CompactView:
     n_rays: int
     rows: int
     host_syncs: int = 0  # host reads the build made
+    caps: tuple = ()  # each band's march cap K_b (the host-banded build)
 
 
 def expand_compact_colors(compact_colors: torch.Tensor, view: CompactView):
@@ -112,7 +120,9 @@ def _tiles(n: int, tile: int):
 def occupancy_counts_rays(grid, params, config, max_steps: int, o_i, d_i, *,
                           clip_box=None, march_cell: int = 8):
     """Per-ray occupied fine-sample bounds for an explicit ray set, (N,)
-    i32, in tiles of ``config.probe_tile`` rays."""
+    i32, in tiles of ``config.probe_tile`` rays.  Fed the rays that are
+    marched later, so that probe and march see the same geometry."""
+    clip_box = _clip_tensors(clip_box, o_i.device)
     out = torch.empty(o_i.shape[0], dtype=torch.int32, device=o_i.device)
     for a, b in _tiles(o_i.shape[0], config.probe_tile):
         out[a:b] = march_ops.occupancy_counts(
@@ -124,23 +134,49 @@ def occupancy_counts_rays(grid, params, config, max_steps: int, o_i, d_i, *,
     return out
 
 
+def _march_samples(max_steps: int, occupied_cap, march_cell: int):
+    """(cap given to the march, samples it returns per ray): the
+    cell-compacted march emits whole cells."""
+    cap = occupied_cap if march_cell > 1 else None
+    if cap is None:
+        return None, max_steps
+    n_cells = -(-max_steps // march_cell)
+    kc = min(max(1, -(-min(cap, max_steps) // march_cell)), n_cells)
+    return cap, kc * march_cell
+
+
+def _tile_rays(config, n_rays: int, samples: int) -> int:
+    """Rays per march tile: ``config.build_tile``, fewer where the march
+    temporaries (~40 B per (ray, sample)) would pass 1.5 GiB."""
+    tile_mem_bound = max(1024, ((3 << 29) // max(samples * 40, 1))
+                         // 1024 * 1024)
+    return max(1, min(config.build_tile, tile_mem_bound, n_rays))
+
+
+def top_k_samples(weight: torch.Tensor, t: torch.Tensor, k: int):
+    """Each row's ``k`` largest weights and the march distances that go
+    with them, (N, k) each, in the order of a stable descending sort:
+    equal weights keep ascending sample order, as ``jax.lax.top_k``."""
+    w, idx = torch.sort(weight, dim=-1, descending=True, stable=True)
+    idx = idx[:, :k]
+    return w[:, :k], torch.gather(t, -1, idx)
+
+
 def _march_planes(grid, params, config, max_steps: int, o_i, d_i, *,
-                  clip_box, occupied_cap, march_cell: int, lanes: bool):
+                  clip_box, occupied_cap, march_cell: int, lanes: bool,
+                  gather_samples: int = 0):
     """Bake the march for an explicit ray set: (4, C, N) lane-major planes
     (``lanes``) or (4, N, C) row-major planes of (wx, wy, wz, w), written
-    tile by tile so that no transposed copy of the planes is made."""
+    tile by tile so that no transposed copy of the planes is made.  With
+    ``gather_samples`` below the march's samples, C = ``gather_samples``
+    (``top_k_samples``)."""
     n_rays = o_i.shape[0]
-    cap = occupied_cap if march_cell > 1 else None
-    if cap is not None:
-        n_cells = -(-max_steps // march_cell)
-        kc = min(max(1, -(-min(cap, max_steps) // march_cell)), n_cells)
-        C = kc * march_cell
-    else:
-        C = max_steps
-    # Memory guard: march temporaries are ~40 B per (ray, sample).
-    tile_mem_bound = max(1024, ((3 << 29) // max(C * 40, 1)) // 1024 * 1024)
-    tile = max(1, min(config.build_tile, tile_mem_bound, n_rays))
+    cap, S = _march_samples(max_steps, occupied_cap, march_cell)
+    compact = bool(gather_samples) and gather_samples < S
+    C = gather_samples if compact else S
+    tile = _tile_rays(config, n_rays, S)
     dev = o_i.device
+    clip_box = _clip_tensors(clip_box, dev)
     shape = (4, C, n_rays) if lanes else (4, n_rays, C)
     planes = torch.empty(shape, dtype=torch.float32, device=dev)
     mm = grid.map_mat
@@ -155,7 +191,9 @@ def _march_planes(grid, params, config, max_steps: int, o_i, d_i, *,
             max_steps=max_steps, clip_box=clip_box, occupied_cap=cap,
             cell=march_cell,
         )
-        t = m.t
+        w, t = m.weight, m.t
+        if compact:
+            w, t = top_k_samples(w, t, C)
         ix = o[:, 0:1] + d[:, 0:1] * t
         iy = o[:, 1:2] + d[:, 1:2] * t
         iz = o[:, 2:3] + d[:, 2:3] * t
@@ -166,20 +204,23 @@ def _march_planes(grid, params, config, max_steps: int, o_i, d_i, *,
             else:
                 planes[i, a:b] = v
         if lanes:
-            planes[3, :, a:b] = m.weight.T
+            planes[3, :, a:b] = w.T
         else:
-            planes[3, a:b] = m.weight
+            planes[3, a:b] = w
     return planes
 
 
 def build_view_rays(grid, params, config, max_steps: int, o_i, d_i, *,
-                    clip_box=None, occupied_cap: int | None = None,
-                    march_cell: int = 8):
+                    gather_samples: int = 0, clip_box=None,
+                    occupied_cap: int | None = None, march_cell: int = 8):
     """Bake the march for an explicit ray set, straight into lane-major
-    planes: returns (wx, wy, wz, w), each (C, N)."""
+    planes: returns (wx, wy, wz, w), each (C, N) (the reference package
+    returns them (N, C)).  The band unit of the host-banded build: each
+    band marches at its own ``occupied_cap``; ``gather_samples``: top-k."""
     return tuple(_march_planes(
         grid, params, config, max_steps, o_i, d_i, clip_box=clip_box,
-        occupied_cap=occupied_cap, march_cell=march_cell, lanes=True))
+        occupied_cap=occupied_cap, march_cell=march_cell, lanes=True,
+        gather_samples=gather_samples))
 
 
 @dataclass
@@ -197,9 +238,11 @@ class ViewCache:
 
 
 def _clip_tensors(clip_box, dev):
+    """The occupied box's corners as f32 tensors on ``dev`` (from numpy
+    arrays or tensors)."""
     if clip_box is None:
         return None
-    return tuple(torch.as_tensor(np.asarray(c, np.float32), device=dev)
+    return tuple(torch.as_tensor(c, dtype=torch.float32, device=dev)
                  for c in clip_box)
 
 
@@ -207,21 +250,103 @@ def build_view(grid: DenseGrid, params: RenderParams, config: StaticConfig,
                max_steps: int, row_start: int = 0,
                num_rows: int | None = None, clip_box=None,
                occupied_cap: int | None = None,
-               march_cell: int = 8) -> ViewCache:
+               march_cell: int = 8, *, gather_samples: int = 0) -> ViewCache:
     """Run the transmittance march for every ray of the view (rows
     ``row_start`` .. + ``num_rows``) and bake world-space sample planes and
     weights in slots layout.  ``clip_box``: the occupied-region corners
     (bit-identical results); ``occupied_cap`` with ``march_cell`` > 1:
-    brick-skipping march at that per-ray cap."""
+    brick-skipping march at that per-ray cap; ``gather_samples``: C for
+    top-k compaction (0 keeps every march sample)."""
     H, W = config.height, config.width
     rows = H if num_rows is None else num_rows
     o_i, d_i = camera_rays_index(grid, params, config, row_start, num_rows)
     wx, wy, wz, w = _march_planes(
-        grid, params, config, max_steps, o_i, d_i,
-        clip_box=_clip_tensors(clip_box, grid.device),
-        occupied_cap=occupied_cap, march_cell=march_cell, lanes=False)
+        grid, params, config, max_steps, o_i, d_i, clip_box=clip_box,
+        occupied_cap=occupied_cap, march_cell=march_cell, lanes=False,
+        gather_samples=gather_samples)
     return ViewCache(wx=wx, wy=wy, wz=wz, weight=w, n_rays=rows * W,
                      rows=rows)
+
+
+def occupancy_probe(grid: DenseGrid, params: RenderParams,
+                    config: StaticConfig, max_steps: int, row_start: int = 0,
+                    num_rows: int | None = None, clip_box=None,
+                    march_cell: int = 8) -> torch.Tensor:
+    """Per-ray occupied fine-sample bounds over the view, (N,) i32, from
+    the dilated brick table alone (no volume fetches): 0 proves a ray
+    black; the maximum bounds ``occupied_cap``."""
+    o_i, d_i = camera_rays_index(grid, params, config, row_start, num_rows)
+    return occupancy_counts_rays(grid, params, config, max_steps, o_i, d_i,
+                                 clip_box=clip_box, march_cell=march_cell)
+
+
+def probe_view(grid: DenseGrid, params: RenderParams, config: StaticConfig,
+               max_steps: int, row_start: int = 0,
+               num_rows: int | None = None, clip_box=None,
+               occupied_cap: int | None = None, march_cell: int = 8):
+    """March statistics without baking planes: (the most nonzero weights
+    on any ray, all nonzero weights, rays with any), 0-d tensors.  Sizes a
+    view exactly: top-k at the first keeps every contributing sample, and
+    a compact view of the third holds every hit ray."""
+    o_i, d_i = camera_rays_index(grid, params, config, row_start, num_rows)
+    cap, S = _march_samples(max_steps, occupied_cap, march_cell)
+    clip = _clip_tensors(clip_box, o_i.device)
+    counts = torch.empty(o_i.shape[0], dtype=torch.int64, device=o_i.device)
+    for a, b in _tiles(o_i.shape[0], _tile_rays(config, o_i.shape[0], S)):
+        m = march_ops.march(
+            grid, o_i[a:b], d_i[a:b],
+            ray_max_distance=params.ray_max_distance,
+            step_size=params.ray_marching_step_size,
+            absorption=params.absorption_coefficient,
+            max_steps=max_steps, clip_box=clip, occupied_cap=cap,
+            cell=march_cell,
+        )
+        counts[a:b] = (m.weight != 0.0).sum(dim=-1)
+    return counts.max(), counts.sum(), (counts > 0).sum()
+
+
+def compact_view(view: ViewCache, capacity_rays: int) -> CompactView:
+    """Pack the hit rays of a ViewCache into ``capacity_rays`` lanes (a
+    multiple of TILE_L), ordered by descending sample need (last nonzero
+    weight + 1; misses sink to the end): one band of (Cp, capacity) planes,
+    the sample axis padded to a multiple of 8.  Exact when the capacity
+    holds every hit ray; overflow rays drop to black, last in need order
+    first."""
+    if capacity_rays % TILE_L:
+        raise ValueError(f"capacity_rays={capacity_rays} is not a multiple "
+                         f"of {TILE_L}")
+    Np = view.weight.shape[0]
+    dev = view.weight.device
+    need = lane_need_of(view.weight.T)
+    hit = need > 0
+    order = torch.argsort(-need, stable=True)
+    pos = torch.empty(Np, dtype=torch.int64, device=dev)
+    pos[order] = torch.arange(Np, device=dev)
+    n_hit = torch.clamp(hit.sum(), max=capacity_rays)
+    keep = hit & (pos < capacity_rays)
+    if capacity_rays > Np:
+        src = F.pad(order, (0, capacity_rays - Np))
+    else:
+        src = order[:capacity_rays]
+    lane_live = torch.arange(capacity_rays, device=dev) < n_hit
+
+    def lanes(a, zero_dead=False):
+        rows = a[src]
+        if zero_dead:
+            rows = torch.where(lane_live[:, None], rows, 0.0)
+        return pad8(rows.T.contiguous())
+
+    band = PlaneBand(
+        wx=lanes(view.wx), wy=lanes(view.wy), wz=lanes(view.wz),
+        weight=lanes(view.weight, zero_dead=True),
+        lane_need=torch.where(lane_live, need[src], 0).to(torch.int32),
+    )
+    return CompactView(
+        bands=(band,),
+        inv_map=torch.where(keep, pos, capacity_rays)[: view.n_rays].to(
+            torch.int32),
+        src=torch.where(lane_live, src, 0).to(torch.int32),
+        n_rays=view.n_rays, rows=view.rows)
 
 
 def build_compact_view_device(
@@ -256,7 +381,6 @@ def build_compact_view_device(
     n_rays = rows * W
     lanes_n = -(-n_rays // TILE_L) * TILE_L
     dev = grid.device
-    clip_box = _clip_tensors(clip_box, dev)
     o_i, d_i = camera_rays_index(grid, params, config, row_start, num_rows)
     pad = lanes_n - n_rays
     starts = list(range(0, lanes_n, band_lanes))
@@ -348,10 +472,10 @@ def _runs(a: torch.Tensor, run: int) -> torch.Tensor:
     return a.reshape((Cp + pad) // run, run, Rc)
 
 
-def _pad8(a: torch.Tensor) -> torch.Tensor:
+def pad8(a: torch.Tensor) -> torch.Tensor:
     """Zero-pad the sample axis to a multiple of 8."""
-    pad8 = (-a.shape[0]) % 8
-    return F.pad(a, (0, 0, 0, pad8)) if pad8 else a
+    n = (-a.shape[0]) % 8
+    return F.pad(a, (0, 0, 0, n)) if n else a
 
 
 def _decimate_band(band: PlaneBand, stride: int) -> PlaneBand:
@@ -369,10 +493,10 @@ def _decimate_band(band: PlaneBand, stride: int) -> PlaneBand:
         return torch.where(live, torch.sum(r * w, dim=1) * inv, r[:, 0, :])
 
     return PlaneBand(
-        wx=_pad8(centroid(band.wx)),
-        wy=_pad8(centroid(band.wy)),
-        wz=_pad8(centroid(band.wz)),
-        weight=_pad8(ws),
+        wx=pad8(centroid(band.wx)),
+        wy=pad8(centroid(band.wy)),
+        wz=pad8(centroid(band.wz)),
+        weight=pad8(ws),
         lane_need=(band.lane_need + (stride - 1)) // stride,
     )
 
@@ -417,14 +541,14 @@ def _decimate_band_gauss2(band: PlaneBand, stride: int) -> PlaneBand:
         off = covs[axis] * scale
         lo = torch.where(live, mus[axis] - off, firsts[axis])
         hi = torch.where(live, mus[axis] + off, firsts[axis])
-        return _pad8(torch.stack([lo, hi], dim=1).reshape(C2, Rc))
+        return pad8(torch.stack([lo, hi], dim=1).reshape(C2, Rc))
 
     wh = ws * 0.5
     return PlaneBand(
         wx=two_points(0),
         wy=two_points(1),
         wz=two_points(2),
-        weight=_pad8(torch.stack([wh, wh], dim=1).reshape(C2, Rc)),
+        weight=pad8(torch.stack([wh, wh], dim=1).reshape(C2, Rc)),
         lane_need=((band.lane_need + R - 1) // R) * 2,
     )
 
@@ -439,7 +563,7 @@ def decimate_view(view: CompactView, stride: int,
     return CompactView(
         bands=tuple(fold_fn(b, stride) for b in view.bands),
         inv_map=view.inv_map, src=view.src, n_rays=view.n_rays,
-        rows=view.rows, host_syncs=view.host_syncs)
+        rows=view.rows, host_syncs=view.host_syncs, caps=view.caps)
 
 
 def merge_row_views(views) -> CompactView:
@@ -567,8 +691,10 @@ def shade_view(grid, view, params, lights: LightArray,
 def render_frame(grid: DenseGrid, params: RenderParams, lights: LightArray,
                  algorithm: Algorithm, config: StaticConfig, max_steps: int,
                  row_start: int = 0, num_rows: int | None = None,
-                 frame: int = 0) -> torch.Tensor:
-    """One uncached frame: the full march of every ray (``build_view``)
-    shaded with frame ``frame`` of ``lights``; (rows, W) radiance."""
-    view = build_view(grid, params, config, max_steps, row_start, num_rows)
+                 frame: int = 0, *, gather_samples: int = 0) -> torch.Tensor:
+    """One uncached frame: the full march of every ray (``build_view``,
+    top-k to ``gather_samples`` when given) shaded with frame ``frame`` of
+    ``lights``; (rows, W) radiance."""
+    view = build_view(grid, params, config, max_steps, row_start, num_rows,
+                      gather_samples=gather_samples)
     return shade_view(grid, view, params, lights, algorithm, config, frame)
