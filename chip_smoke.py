@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (volumerenderer_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py          # every phase
-    python3 chip_smoke.py asset    # device, build and the asset phase only
+    python3 chip_smoke.py
 
 Phases, each printed as one JSON line; any failure exits nonzero:
 
@@ -2022,9 +2021,6 @@ def main() -> int:
 
     smi = phase_device()
     phase_build()
-    if sys.argv[1:] == ["asset"]:
-        phase_asset()
-        return 0
     phase_kernel()
     phase_segment_kernel()
     per_tier = {tier: phase_main(tier) for tier in ("exact", "paired")}

@@ -1,6 +1,5 @@
-"""The host-banded compact build, top-k compaction (``gather_samples``) and
-the probe and compaction functions of the port against the JAX package's
-(CPU).
+"""The host-banded compact build and top-k compaction (``gather_samples``)
+of the port against the JAX package's (CPU).
 
 Layouts are held equal: band count, each band's cap (its plane width),
 ``lane_need``, ``inv_map`` and ``src``.  Planes are held at the port's
@@ -151,19 +150,19 @@ def test_host_build_matches_device_build(algorithm):
 @pytest.mark.parametrize("algorithm", [JAlgorithm.POINT, JAlgorithm.RAY],
                          ids=["point", "ray"])
 def test_slots_view_top_k_matches_jax(algorithm):
-    """compact_view=False with the Renderer's gather_samples argument: the
-    top-k ViewCache, inexact in both packages; frames after step(3), at
+    """compact_view=False with the config's gather_samples: the top-k
+    ViewCache, inexact in both packages; frames after step(3), at
     32x32 as the slots tests take them (at 64x64 one ray's camera ray
     differs by an ulp between the packages and fetches the next voxel at
     a boundary, which top-k turns into another kept sample)."""
     g, p, c = scene()
     c = dataclasses.replace(c, width=32, height=32,
-                            gather_impl="vpu_interpret", compact_view=False)
-    rj = JRenderer(g, c, p, algorithm=algorithm, gather_samples=GS)
-    rt = vt.Renderer(convert.grid_from_numpy(g), port_config(c),
-                     convert.params_from_numpy(p),
-                     algorithm=vt.Algorithm[algorithm.name],
-                     gather_samples=GS)
+                            gather_impl="vpu_interpret", compact_view=False,
+                            gather_samples=GS)
+    rj = JRenderer(g, c, p, algorithm=algorithm)
+    grid, params = convert.grid_from_numpy(g), convert.params_from_numpy(p)
+    rt = vt.Renderer(grid, port_config(c), params,
+                     algorithm=vt.Algorithm[algorithm.name])
     rj.step(3)
     rt.step(3)
     assert not rt.view_exact and not rj.view_exact
@@ -172,11 +171,12 @@ def test_slots_view_top_k_matches_jax(algorithm):
     assert got.max() > 0
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=FRAME_ATOL[algorithm])
-    # The view key holds gather_samples: a change rebuilds the view.
-    view = rt._view
-    rt.gather_samples = 0
+    # The view key holds gather_samples: without it the view is exact.
+    key = rt._view_key
+    rt = vt.Renderer(grid, port_config(dataclasses.replace(
+        c, gather_samples=0)), params, algorithm=vt.Algorithm[algorithm.name])
     rt.step(1)
-    assert rt._view is not view and rt.view_exact
+    assert rt._view_key != key and rt.view_exact
     assert rt._view.weight.shape[1] > GS
 
 
@@ -262,49 +262,42 @@ def test_band_from_planes_matches_jax(C):
                                       err_msg=name)
 
 
-@pytest.mark.parametrize("capacity", [1024, 2048, 4096],
-                         ids=["overflow", "fits", "roomy"])
-def test_compact_view_matches_jax(capacity):
-    """compact_view of the same ViewCache (carried across): pure data
-    movement, so every plane, lane_need, inv_map and src is equal; a
-    capacity below the hit rays drops the rays of least need."""
-    g, p, c = scene()
-    rj = JRenderer(g, c, p, algorithm=JAlgorithm.POINT)
-    vj = jbuild_view(rj.grid, rj.params, None, config=c,
-                     max_steps=rj._max_steps)
-    cj = jcolor.compact_view(vj, capacity)
-    ct = tcolor.compact_view(convert.view_cache_from_numpy(vj), capacity)
-    np.testing.assert_array_equal(ct.inv_map.numpy(), np.asarray(cj.inv_map))
-    np.testing.assert_array_equal(ct.src.numpy(), np.asarray(cj.src))
-    (bt,), (bj,) = ct.bands, cj.bands
-    for name in ("wx", "wy", "wz", "weight", "lane_need"):
-        np.testing.assert_array_equal(getattr(bt, name).numpy(),
-                                      np.asarray(getattr(bj, name)),
-                                      err_msg=name)
-    hits = int((np.asarray(vj.weight) != 0).any(axis=1).sum())
-    assert (hits > capacity) == (capacity == 1024)
-    with pytest.raises(ValueError):
-        tcolor.compact_view(convert.view_cache_from_numpy(vj), 1000)
+@pytest.mark.parametrize("path", ["host", "device", "truncated", "settle"])
+def test_builds_take_the_cached_clip_tensors(monkeypatch, path):
+    """Every march and occupancy pass of a view build gets the clip box as
+    the tensors the session copied to its device once per grid: no build
+    and no band copies it again (on the card each such copy waits for the
+    stream).  The host-banded and device builds, the truncated drag's
+    identity-order build and the settle's row chunks."""
+    from volumerenderer_tpu_torch.ops import march as march_ops
 
+    seen = []
+    for name in ("march", "occupancy_counts"):
+        fn = getattr(march_ops, name)
 
-@pytest.mark.parametrize("clip", [False, True], ids=["bbox", "clip_box"])
-def test_probes_match_jax(clip):
-    """occupancy_probe (per-ray counts) and probe_view (max, total and
-    hit counts of nonzero weights, with and without an occupancy cap)."""
-    g, p, c = scene()
-    rj = JRenderer(g, c, p, algorithm=JAlgorithm.POINT)
-    box = rj._occupied_clip()[0] if clip else None
-    steps = rj._max_steps
-    gt, pt, ct = (convert.grid_from_numpy(g), convert.params_from_numpy(p),
-                  port_config(c))
-    cj = jcolor.occupancy_probe(rj.grid, rj.params, c, steps, clip_box=box)
-    counts = tcolor.occupancy_probe(gt, pt, ct, steps, clip_box=box)
-    np.testing.assert_array_equal(counts.numpy(), np.asarray(cj))
-    cap = int(counts.max())
-    for occupied_cap in (None, cap):
-        want = jcolor.probe_view(rj.grid, rj.params, c, steps, clip_box=box,
-                                 occupied_cap=occupied_cap)
-        got = tcolor.probe_view(gt, pt, ct, steps, clip_box=box,
-                                occupied_cap=occupied_cap)
-        assert [int(v) for v in got] == [int(v) for v in want]
-        assert int(got[0]) > 0
+        def spy(*a, _fn=fn, **kw):
+            seen.append(kw.get("clip_box"))
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(march_ops, name, spy)
+    g = vt.grid.procedural.cloud(n=32, device="cpu")
+    fields = {"host": dict(compact_build="host"), "device": {},
+              "truncated": dict(motion_mode="truncated"),
+              "settle": dict(motion_mode="coarse", settle_chunks=2)}[path]
+    r = vt.Renderer(g, vt.StaticConfig(width=32, height=32, **fields))
+    r.step(1)
+    if path in ("truncated", "settle"):
+        r.set(camera_pos=(1.0, 20.0, -75.0))
+        r.step(1)  # a drag frame
+        if path == "settle":
+            r.step(1)  # the two row chunks, one a tick
+            r.step(1)
+    clip = r._occupied_clip()[0]
+    assert clip is r._occ_clip and clip[0].dtype == torch.float32
+    used = [c for c in seen if c is not None]
+    assert used and all(c[0] is clip[0] and c[1] is clip[1] for c in used)
+    assert r.host_syncs >= 1
+    if path == "host":
+        assert r._view.caps
+    if path == "settle":
+        assert r.view_exact and len(r._view.bands) >= 2

@@ -103,7 +103,6 @@ class Renderer:
         config: StaticConfig | None = None,
         params: RenderParams | None = None,
         algorithm: Algorithm = Algorithm.RAY,  # default (src/main.cpp:119)
-        gather_samples: int | None = None,
         device=None,
     ):
         self.device = _resolve_device(device, grid)
@@ -113,9 +112,6 @@ class Renderer:
         self.config = config or StaticConfig()
         self.params = params or RenderParams.default()
         self.algorithm = check_algorithm(algorithm)
-        # Top-k compaction of the views' march (the config's unless given).
-        self.gather_samples = (self.config.gather_samples
-                               if gather_samples is None else gather_samples)
         self.state = RenderState.create(self.config.height, self.config.width,
                                         self.device)
         self.lights = None
@@ -222,18 +218,22 @@ class Renderer:
         return max(1, int(8.0 // max(float(step), 1e-6)))
 
     def _occupied_clip(self):
-        """Occupied-brick bbox + step bound, cached per grid: marches clip
-        to the occupied region with bit-identical results."""
+        """Occupied-brick bbox (its corners as f32 tensors on the device,
+        copied there once per grid) + step bound: marches clip to the
+        occupied region with bit-identical results."""
         if getattr(self, "_occ_cache_id", None) != self._grid_token:
             self.host_syncs += 1
-            self._occ_cache = occupied_bbox(self.grid)
+            box = occupied_bbox(self.grid)
+            self._occ_cache = box
+            self._occ_clip = (None if box is None else tuple(
+                torch.as_tensor(c, device=self.device) for c in box))
             self._occ_cache_id = self._grid_token
         box = self._occ_cache
         if box is None:
             return None, 1
         diag = float(np.linalg.norm(box[1] - box[0]))
         steps = int(math.ceil(diag / self.params.ray_marching_step_size)) + 3
-        return box, max(1, min(steps, self.config.max_march_steps))
+        return self._occ_clip, max(1, min(steps, self.config.max_march_steps))
 
     def _make_view_key(self, max_steps: int):
         p = self.params
@@ -247,7 +247,7 @@ class Renderer:
             self.config.width,
             self.config.height,
             max_steps,
-            self.gather_samples,
+            self.config.gather_samples,
             self._grid_token,
         )
 
@@ -256,7 +256,7 @@ class Renderer:
         ``compact_build="host"`` or with ``gather_samples``; always for
         "device"; for "auto" when its planes fit the device budget."""
         mode = self.config.compact_build
-        if mode == "host" or self.gather_samples:
+        if mode == "host" or self.config.gather_samples:
             return False
         if mode == "device":
             return True
@@ -285,7 +285,7 @@ class Renderer:
             clip_box, view_steps = self._occupied_clip()
             steps = min(max_steps, view_steps)
             if not self.config.compact_view:
-                gs = self.gather_samples
+                gs = self.config.gather_samples
                 self.view_exact = gs == 0 or gs >= steps
                 self._view = build_view_step(
                     self.grid, self.params, clip_box, config=self.config,
@@ -335,9 +335,14 @@ class Renderer:
                 [order_l, np.zeros(lanes_n - len(order_l), np.int32)])
         counts_l = np.where(np.arange(lanes_n) < hit_n, counts[order_l],
                             0).astype(np.int32)
-        gs = self.gather_samples
+        gs = self.config.gather_samples
         self.view_exact = (not gs) or gs >= int(counts_l[0])
+        inv = np.full(n_rays, lanes_n, np.int32)
+        inv[order_l[:hit_n]] = np.arange(hit_n, dtype=np.int32)
+        # Both copies to the device before the march, while the stream is
+        # idle after the counts' read.
         src = torch.as_tensor(order_l, device=self.device)
+        inv_map = torch.as_tensor(inv, device=self.device)
         lane_rays = src.to(torch.int64)
         bands, caps = [], []
         startl = 0
@@ -357,13 +362,10 @@ class Renderer:
             bands.append(band_from_planes(*planes))
             caps.append(kb)
             startl += size
-        inv = np.full(n_rays, lanes_n, np.int32)
-        inv[order_l[:hit_n]] = np.arange(hit_n, dtype=np.int32)
         self.host_syncs += syncs
         view = CompactView(
-            bands=tuple(bands), inv_map=torch.as_tensor(inv, device=self.device),
-            src=src, n_rays=n_rays, rows=H, host_syncs=syncs,
-            caps=tuple(caps))
+            bands=tuple(bands), inv_map=inv_map, src=src, n_rays=n_rays,
+            rows=H, host_syncs=syncs, caps=tuple(caps))
         if cfg.gather_stride > 1:
             view = decimate_view(view, int(cfg.gather_stride),
                                  fold=cfg.gather_fold)
@@ -397,7 +399,7 @@ class Renderer:
                 self.state, lights = render_step(
                     self.grid, params, self.state, algorithm=self.algorithm,
                     config=self.config, max_steps=steps,
-                    gather_samples=self.gather_samples)
+                    gather_samples=self.config.gather_samples)
                 self._took(lights, 1)
             return self.state
         clip_box, view_steps = self._occupied_clip()
@@ -626,7 +628,7 @@ class Renderer:
                 self.state, lights = render_step(
                     self.grid, self.params, self.state,
                     algorithm=self.algorithm, config=self.config,
-                    max_steps=max_steps, gather_samples=self.gather_samples)
+                    max_steps=max_steps, gather_samples=self.config.gather_samples)
                 self._took(lights, 1)
             return self.state
         key = self._make_view_key(max_steps)
@@ -654,7 +656,7 @@ class Renderer:
             self.state, lights = render_step(
                 self.grid, self.params, self.state,
                 algorithm=self.algorithm, config=self.config,
-                max_steps=max_steps, gather_samples=self.gather_samples)
+                max_steps=max_steps, gather_samples=self.config.gather_samples)
             self._took(lights, 1)
             n -= 1
             if n <= 0:

@@ -9,14 +9,16 @@ under a file name that carries a hash of the sources, the flags, the
 compiler and the zlib it links, then loads the result.  zlib is linked by
 the path of the ``libz`` that Python's own ``zlib`` module loaded (``-lz``
 when that is not found); ``native/zlib_api.h`` declares its calls when
-the system has no ``zlib.h``.  A missing compiler or a failed build
-raises.
+the system has no ``zlib.h``.  The build's log beside the library
+(``libvdbio-<hash>.json``) holds its command, the compiler's output and
+which zlib case held.  A missing compiler or a failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -84,13 +86,18 @@ def _build(cxx: str, link: str, so: Path) -> None:
     cmd = [cxx, *CXXFLAGS, *(str(NATIVE / s) for s in SOURCES),
            "-o", str(tmp), link]
     out = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(" ".join(cmd) + "\n" + out.stdout
-                                      + out.stderr)
-    if out.returncode != 0:
+    log = dict(command=" ".join(cmd), output=out.stdout + out.stderr,
+               zlib=link, zlib_header=_has_zlib_header(cxx))
+    if out.returncode == 0:
+        os.replace(tmp, so)  # atomic: a reader never sees a partial file
+    else:
         tmp.unlink(missing_ok=True)
+    tmp_log = tmp.with_suffix(".json")
+    tmp_log.write_text(json.dumps(log, indent=1))
+    os.replace(tmp_log, so.with_suffix(".json"))
+    if out.returncode != 0:
         raise RuntimeError(f"g++ failed to build the native volume I/O "
                            f"library (exit {out.returncode}):\n{out.stderr}")
-    os.replace(tmp, so)  # atomic: a reader never sees a partial file
 
 
 def lib() -> ctypes.CDLL:
@@ -102,10 +109,12 @@ def lib() -> ctypes.CDLL:
         cxx = _compiler()
         link = zlib_link()
         so = _so_path(cxx, link)
-        if not so.exists():
+        log = so.with_suffix(".json")
+        if not (so.exists() and log.exists()):
             _build(cxx, link, so)
-        build_info.update(path=str(so), zlib=link,
-                          zlib_header=_has_zlib_header(cxx))
+        log = json.loads(log.read_text())
+        build_info.update(path=str(so), zlib=log["zlib"],
+                          zlib_header=log["zlib_header"])
         L = ctypes.CDLL(str(so))
         c_int, c_i64, c_char_p = ctypes.c_int, ctypes.c_int64, ctypes.c_char_p
         c_i32p = ctypes.POINTER(ctypes.c_int32)
@@ -128,8 +137,6 @@ def lib() -> ctypes.CDLL:
                                 c_dp, c_dp, ctypes.POINTER(c_char_p),
                                 ctypes.c_uint32, c_char_p, c_int],
             "vdbio_write_png": [c_char_p, ctypes.c_void_p, ctypes.c_int32,
-                                ctypes.c_int32, c_char_p, c_int],
-            "vdbio_write_ppm": [c_char_p, ctypes.c_void_p, ctypes.c_int32,
                                 ctypes.c_int32, c_char_p, c_int],
         }
         for name, argtypes in sigs.items():

@@ -1,1 +1,1 @@
-from . import frame_writer, ppm
+from . import ppm

@@ -4,7 +4,11 @@ native encoder (native/imageio.cpp, zlib)."""
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
+
+from ..grid import vdbio_native
 
 
 def write_ppm(path: str, image_u8: np.ndarray) -> None:
@@ -36,7 +40,18 @@ def read_ppm(path: str) -> np.ndarray:
 
 
 def write_png(path: str, image_u8: np.ndarray) -> None:
-    """PNG (RGB8) through the native encoder, whatever the path's suffix."""
-    from .frame_writer import encode_image
-
-    encode_image(path, image_u8, "png")
+    """PNG (RGB8) through the native encoder, whatever the path's suffix.
+    ``image_u8``: (H, W, 3) or (H, W) uint8."""
+    img = np.asarray(image_u8)
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=-1)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[-1] != 3:
+        raise ValueError(f"expected (H, W, 3) uint8, got {img.shape} {img.dtype}")
+    img = np.ascontiguousarray(img)
+    h, w = img.shape[:2]
+    err = ctypes.create_string_buffer(256)
+    rc = vdbio_native.lib().vdbio_write_png(
+        str(path).encode(), img.ctypes.data_as(ctypes.c_void_p), w, h, err,
+        256)
+    if rc:
+        raise IOError(f"write_png({path}): {err.value.decode()}")

@@ -121,8 +121,8 @@ def occupancy_counts_rays(grid, params, config, max_steps: int, o_i, d_i, *,
                           clip_box=None, march_cell: int = 8):
     """Per-ray occupied fine-sample bounds for an explicit ray set, (N,)
     i32, in tiles of ``config.probe_tile`` rays.  Fed the rays that are
-    marched later, so that probe and march see the same geometry."""
-    clip_box = _clip_tensors(clip_box, o_i.device)
+    marched later, so that probe and march see the same geometry.
+    ``clip_box``: device tensors (``_clip_tensors``)."""
     out = torch.empty(o_i.shape[0], dtype=torch.int32, device=o_i.device)
     for a, b in _tiles(o_i.shape[0], config.probe_tile):
         out[a:b] = march_ops.occupancy_counts(
@@ -132,25 +132,6 @@ def occupancy_counts_rays(grid, params, config, max_steps: int, o_i, d_i, *,
             max_steps=max_steps, clip_box=clip_box, cell=march_cell,
         )
     return out
-
-
-def _march_samples(max_steps: int, occupied_cap, march_cell: int):
-    """(cap given to the march, samples it returns per ray): the
-    cell-compacted march emits whole cells."""
-    cap = occupied_cap if march_cell > 1 else None
-    if cap is None:
-        return None, max_steps
-    n_cells = -(-max_steps // march_cell)
-    kc = min(max(1, -(-min(cap, max_steps) // march_cell)), n_cells)
-    return cap, kc * march_cell
-
-
-def _tile_rays(config, n_rays: int, samples: int) -> int:
-    """Rays per march tile: ``config.build_tile``, fewer where the march
-    temporaries (~40 B per (ray, sample)) would pass 1.5 GiB."""
-    tile_mem_bound = max(1024, ((3 << 29) // max(samples * 40, 1))
-                         // 1024 * 1024)
-    return max(1, min(config.build_tile, tile_mem_bound, n_rays))
 
 
 def top_k_samples(weight: torch.Tensor, t: torch.Tensor, k: int):
@@ -171,12 +152,19 @@ def _march_planes(grid, params, config, max_steps: int, o_i, d_i, *,
     ``gather_samples`` below the march's samples, C = ``gather_samples``
     (``top_k_samples``)."""
     n_rays = o_i.shape[0]
-    cap, S = _march_samples(max_steps, occupied_cap, march_cell)
+    cap = occupied_cap if march_cell > 1 else None
+    if cap is not None:
+        n_cells = -(-max_steps // march_cell)
+        kc = min(max(1, -(-min(cap, max_steps) // march_cell)), n_cells)
+        S = kc * march_cell
+    else:
+        S = max_steps
     compact = bool(gather_samples) and gather_samples < S
     C = gather_samples if compact else S
-    tile = _tile_rays(config, n_rays, S)
+    # Memory guard: march temporaries are ~40 B per (ray, sample).
+    tile_mem_bound = max(1024, ((3 << 29) // max(S * 40, 1)) // 1024 * 1024)
+    tile = max(1, min(config.build_tile, tile_mem_bound, n_rays))
     dev = o_i.device
-    clip_box = _clip_tensors(clip_box, dev)
     shape = (4, C, n_rays) if lanes else (4, n_rays, C)
     planes = torch.empty(shape, dtype=torch.float32, device=dev)
     mm = grid.map_mat
@@ -216,7 +204,8 @@ def build_view_rays(grid, params, config, max_steps: int, o_i, d_i, *,
     """Bake the march for an explicit ray set, straight into lane-major
     planes: returns (wx, wy, wz, w), each (C, N) (the reference package
     returns them (N, C)).  The band unit of the host-banded build: each
-    band marches at its own ``occupied_cap``; ``gather_samples``: top-k."""
+    band marches at its own ``occupied_cap``; ``gather_samples``: top-k;
+    ``clip_box``: device tensors (``_clip_tensors``)."""
     return tuple(_march_planes(
         grid, params, config, max_steps, o_i, d_i, clip_box=clip_box,
         occupied_cap=occupied_cap, march_cell=march_cell, lanes=True,
@@ -261,92 +250,12 @@ def build_view(grid: DenseGrid, params: RenderParams, config: StaticConfig,
     rows = H if num_rows is None else num_rows
     o_i, d_i = camera_rays_index(grid, params, config, row_start, num_rows)
     wx, wy, wz, w = _march_planes(
-        grid, params, config, max_steps, o_i, d_i, clip_box=clip_box,
+        grid, params, config, max_steps, o_i, d_i,
+        clip_box=_clip_tensors(clip_box, grid.device),
         occupied_cap=occupied_cap, march_cell=march_cell, lanes=False,
         gather_samples=gather_samples)
     return ViewCache(wx=wx, wy=wy, wz=wz, weight=w, n_rays=rows * W,
                      rows=rows)
-
-
-def occupancy_probe(grid: DenseGrid, params: RenderParams,
-                    config: StaticConfig, max_steps: int, row_start: int = 0,
-                    num_rows: int | None = None, clip_box=None,
-                    march_cell: int = 8) -> torch.Tensor:
-    """Per-ray occupied fine-sample bounds over the view, (N,) i32, from
-    the dilated brick table alone (no volume fetches): 0 proves a ray
-    black; the maximum bounds ``occupied_cap``."""
-    o_i, d_i = camera_rays_index(grid, params, config, row_start, num_rows)
-    return occupancy_counts_rays(grid, params, config, max_steps, o_i, d_i,
-                                 clip_box=clip_box, march_cell=march_cell)
-
-
-def probe_view(grid: DenseGrid, params: RenderParams, config: StaticConfig,
-               max_steps: int, row_start: int = 0,
-               num_rows: int | None = None, clip_box=None,
-               occupied_cap: int | None = None, march_cell: int = 8):
-    """March statistics without baking planes: (the most nonzero weights
-    on any ray, all nonzero weights, rays with any), 0-d tensors.  Sizes a
-    view exactly: top-k at the first keeps every contributing sample, and
-    a compact view of the third holds every hit ray."""
-    o_i, d_i = camera_rays_index(grid, params, config, row_start, num_rows)
-    cap, S = _march_samples(max_steps, occupied_cap, march_cell)
-    clip = _clip_tensors(clip_box, o_i.device)
-    counts = torch.empty(o_i.shape[0], dtype=torch.int64, device=o_i.device)
-    for a, b in _tiles(o_i.shape[0], _tile_rays(config, o_i.shape[0], S)):
-        m = march_ops.march(
-            grid, o_i[a:b], d_i[a:b],
-            ray_max_distance=params.ray_max_distance,
-            step_size=params.ray_marching_step_size,
-            absorption=params.absorption_coefficient,
-            max_steps=max_steps, clip_box=clip, occupied_cap=cap,
-            cell=march_cell,
-        )
-        counts[a:b] = (m.weight != 0.0).sum(dim=-1)
-    return counts.max(), counts.sum(), (counts > 0).sum()
-
-
-def compact_view(view: ViewCache, capacity_rays: int) -> CompactView:
-    """Pack the hit rays of a ViewCache into ``capacity_rays`` lanes (a
-    multiple of TILE_L), ordered by descending sample need (last nonzero
-    weight + 1; misses sink to the end): one band of (Cp, capacity) planes,
-    the sample axis padded to a multiple of 8.  Exact when the capacity
-    holds every hit ray; overflow rays drop to black, last in need order
-    first."""
-    if capacity_rays % TILE_L:
-        raise ValueError(f"capacity_rays={capacity_rays} is not a multiple "
-                         f"of {TILE_L}")
-    Np = view.weight.shape[0]
-    dev = view.weight.device
-    need = lane_need_of(view.weight.T)
-    hit = need > 0
-    order = torch.argsort(-need, stable=True)
-    pos = torch.empty(Np, dtype=torch.int64, device=dev)
-    pos[order] = torch.arange(Np, device=dev)
-    n_hit = torch.clamp(hit.sum(), max=capacity_rays)
-    keep = hit & (pos < capacity_rays)
-    if capacity_rays > Np:
-        src = F.pad(order, (0, capacity_rays - Np))
-    else:
-        src = order[:capacity_rays]
-    lane_live = torch.arange(capacity_rays, device=dev) < n_hit
-
-    def lanes(a, zero_dead=False):
-        rows = a[src]
-        if zero_dead:
-            rows = torch.where(lane_live[:, None], rows, 0.0)
-        return pad8(rows.T.contiguous())
-
-    band = PlaneBand(
-        wx=lanes(view.wx), wy=lanes(view.wy), wz=lanes(view.wz),
-        weight=lanes(view.weight, zero_dead=True),
-        lane_need=torch.where(lane_live, need[src], 0).to(torch.int32),
-    )
-    return CompactView(
-        bands=(band,),
-        inv_map=torch.where(keep, pos, capacity_rays)[: view.n_rays].to(
-            torch.int32),
-        src=torch.where(lane_live, src, 0).to(torch.int32),
-        n_rays=view.n_rays, rows=view.rows)
 
 
 def build_compact_view_device(
@@ -381,6 +290,7 @@ def build_compact_view_device(
     n_rays = rows * W
     lanes_n = -(-n_rays // TILE_L) * TILE_L
     dev = grid.device
+    clip_box = _clip_tensors(clip_box, dev)
     o_i, d_i = camera_rays_index(grid, params, config, row_start, num_rows)
     pad = lanes_n - n_rays
     starts = list(range(0, lanes_n, band_lanes))
