@@ -86,9 +86,10 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                frames (no re-bake) and the frame that re-bakes, each on the
                host clock;
  15. goldens   the golden scene (64x64 cloud(n=48)) for Point, Sphere, Ray
-               and Beam through the compact view and the slots view, and
-               for Path cached and uncached, against tests/goldens at
-               windowed SSIM >= 0.995 and max abs error < 5e-3;
+               and Beam through the compact view and the slots view, for
+               Path cached and uncached, and the density harness's image,
+               against tests/goldens at windowed SSIM >= 0.995 and max abs
+               error < 5e-3;
  16. manykernel the many-light kernel (csrc/gather_many.cu) against its plain
                version at synthetic (144, 65536) planes, about half of them
                at zero weight, point and sphere, for 2,049 valid slots,
@@ -127,18 +128,54 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                kernel against plain; ``python -m volumerenderer_tpu_torch
                render`` on the .vdb (its PPM equal to the same session's
                image in this process), ``bench`` and ``warmup`` as
-               subprocesses.
+               subprocesses;
+ 20. options   the slice options.  options_asset: the asset (read from
+               build/asset/asset.vdb) at 1920x1080 with
+               interpolation="trilinear", RAY discrete exact through the
+               host-banded build at the full step budget (fails if the
+               device build would take it): bands, caps, view bytes, build
+               ms, stored, used and live samples, ms/frame over step(8)
+               after step(2), host syncs a frame, peak memory, discrete
+               launches a frame; the image against the nearest session's
+               (they differ); row 2 against plain on the SEG_RC lanes of
+               the band window with the most live samples, beside the
+               nearest view's (ns per live sample); POINT step(2) and row 1
+               on the same lanes; the trilinear samples of nonzero density
+               the occupied-box clip leaves out, on every 4th ray.
+               options_bench: the bench config under trilinear, POINT exact,
+               RAY discrete exact and RAY analytic paired through the
+               compact view (the device build in identity order, no host
+               read), POINT and RAY discrete exact through the slots view
+               (rows 4 and 5 against plain on SLOT_RAYS rays, the image
+               against the compact one at rtol 1e-5, atol 1e-7): step(8),
+               then step(8) timed, launches.  options_u8: POINT exact with
+               accum_dtype="uint8": after step(1) equal to a float32
+               session's accumulator quantized, bit for bit; after step(8)
+               on the k/255 grid.  The phase's seconds;
+ 21. density   the density harness on the asset read from .vdb: the
+               reference's CPU_test (256x256, camera (0, 250, -800),
+               world-as-index) and 1920x1080 with apply_transform=True from
+               the asset's camera: seconds, max, nonzero pixels;
+ 22. aux       a 1080p asset RAY session: a checkpoint after step(3)
+               loaded into a fresh session, then step(2), equal bit for bit
+               to the uninterrupted session; the debug light views of its
+               lights (lit pixels); profiling.trace around one frame (the
+               Chrome trace names the discrete kernel);
+               device_memory_stats(); viewer.render_offline of 4 frames at
+               512x512 to PNG, and one InteractiveViewer.tick under Agg
+               where matplotlib is installed.
 
 The lines before the last are the card's name and power limit as
 nvidia-smi gives them and a JSON object of the kernels, one entry for each
-run of phases 5, 8, 11 and 17 (PATH runs no kernel; the many-light
+run of phases 5, 8, 11, 17 and 20 (PATH runs no kernel; the many-light
 entries after the first two, gather_many[point,exact] and
 gather_many[sphere,exact], add their run's label to the name; each entry
 with its launches in that run and its bound: the larger of its f32
 operations at 67 TFLOP/s and its bytes at 3.35 TB/s, counted for this
 run's inputs; the point lane kernel at the widest band, the others at the
-whole shape a frame launches: the widest band or the whole ViewCache); the
-last line is
+whole shape a frame launches: the widest band or the whole ViewCache;
+phase 20's entries, named "... trilinear", at the slices they were held
+against plain on); the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
 repository, it exits nonzero and prints no result.
 """
@@ -1292,6 +1329,18 @@ def phase_goldens():
         if not (s >= 0.995 and err < 5e-3):
             raise AssertionError(f"{algo.name}: golden SSIM {s:.5f}, "
                                  f"max abs err {err:.2e}")
+    # The density harness on the golden scene (tests/test_goldens.py).
+    from volumerenderer_tpu_torch.render import density
+
+    img = density.render_density(
+        g, width=64, height=64, camera_pos=(0.0, 20.0, -75.0), t_max=200.0,
+        dt=1.0, apply_transform=True).cpu().numpy()
+    want = np.load(ROOT / "tests" / "goldens" / "density.npy")
+    s, err = ssim(img, want), float(np.abs(img - want).max())
+    emit("goldens", algorithm="density", ssim=s, max_abs_err=err)
+    if not (s >= 0.995 and err < 5e-3):
+        raise AssertionError(f"density: golden SSIM {s:.5f}, max abs err "
+                             f"{err:.2e}")
 
 
 def path_renderer(**config):
@@ -2004,6 +2053,566 @@ def phase_asset():
                              "the same session's image")
 
 
+
+def live_window(band, n: int) -> slice:
+    """The ``n``-lane window of a band (starts in steps of 1,024 lanes)
+    that holds the most live samples (w != 0)."""
+    import torch
+
+    per_lane = (band.weight != 0).sum(dim=0)
+    Rc = per_lane.shape[0]
+    if Rc <= n:
+        return slice(0, Rc)
+    csum = torch.cat([per_lane.new_zeros(1), torch.cumsum(per_lane, 0)])
+    starts = torch.arange(0, Rc - n + 1, 1024, device=per_lane.device)
+    a = int(starts[torch.argmax(csum[starts + n] - csum[starts])])
+    return slice(a, a + n)
+
+
+def lane_slice(band, cut):
+    """A band's planes and lane_need over lanes ``cut``, contiguous."""
+    planes = [t[:, cut].contiguous() for t in
+              (band.wx, band.wy, band.wz, band.weight)]
+    return planes, band.lane_need[cut].contiguous()
+
+
+def next_lights(r):
+    """The lights of the session's next frame."""
+    from volumerenderer_tpu_torch.render import photon
+
+    return photon.generate_lights(r.grid, r.params, [r.state.frame_count + 1],
+                                  r.config, max_steps=r._max_steps)
+
+
+def asset_row2(r, view, label):
+    """Row 2 (the lane discrete kernel) against its plain version on the
+    SEG_RC lanes of the view's band window with the most live samples, and
+    its launches over the whole view, as a frame makes them (view_ms), and
+    over no valid segment (view_scan_ms): returns the kernel line's
+    figures."""
+    import torch
+
+    from volumerenderer_tpu_torch.ops.kernels import gather_segments as gs
+
+    band = max(view.bands, key=lambda b: int((b.weight != 0).sum()))
+    planes, need = lane_slice(band, live_window(band, SEG_RC))
+    lights = next_lights(r)
+    segs = (lights.pos_from[0], lights.pos_to[0], lights.intensity[0],
+            lights.valid[0])
+    step = r.params.light_ray_step_size
+    n0 = dict(gs.launches)
+    err, abs_err, ms, plain_ms, _ = run_segment_kernel(
+        "discrete", planes, segs, need, step,
+        dict(sphere_radius=None, paired=False))
+
+    # The whole view as a frame shades it (every band's launch), and the
+    # same launches with no valid segment: the scan and lane sums alone.
+    def shade(valid):
+        for b in view.bands:
+            gs.gather_segments_discrete_lanes(
+                b.wx, b.wy, b.wz, b.weight, *segs[:3], valid, step,
+                lane_need=b.lane_need)
+
+    shade(segs[3])
+    _, view_ms = cuda_timed(lambda: shade(segs[3]), 3)
+    _, view_scan_ms = cuda_timed(lambda: shade(torch.zeros_like(segs[3])), 3)
+    gs.launches.update(n0)  # comparison launches are not main-path launches
+    live = int((planes[3] != 0).sum())
+    bound_ms, bound_by = lane_bound(
+        planes[3], need, ops_per_sample("discrete-ray", segs=segs, step=step),
+        32 * segs[0].shape[0], call_ops("discrete-ray", segs=segs, step=step))
+    fields = dict(Cp=planes[0].shape[0], Rc=planes[0].shape[1],
+                  live_samples=live, used_samples=int(need.sum()),
+                  sublights=sublights(segs, step), max_rel_err=err,
+                  max_abs_err=abs_err, tol=RTOL_SEGMENT, ms=ms,
+                  plain_ms=plain_ms, ns_per_live_sample=ms * 1e6 / max(live, 1),
+                  bound_ms=bound_ms, bound_by=bound_by, view_ms=view_ms,
+                  view_scan_ms=view_scan_ms)
+    emit("options_asset_row2", view=label, **fields)
+    if not err <= RTOL_SEGMENT:
+        raise AssertionError(f"options asset {label}: discrete kernel vs "
+                             f"plain rel err {err:.3g} > {RTOL_SEGMENT:g}")
+    return fields
+
+
+def asset_row1(r, view, label):
+    """Row 1 (the lane point kernel) against its plain version on the
+    SEG_RC lanes of the view's band window with the most live samples,
+    with the next frame's lights: returns the kernel line's figures."""
+    import torch
+
+    from volumerenderer_tpu_torch.ops.kernels import gather_lanes as gl
+
+    band = max(view.bands, key=lambda b: int((b.weight != 0).sum()))
+    planes, need = lane_slice(band, live_window(band, SEG_RC))
+    lights = next_lights(r)
+    valid = lights.valid[0].to(torch.int32)
+    args = planes + [lights.pos_to[0], lights.intensity[0],
+                     torch.argmax(valid), valid.sum()]
+    kw = dict(sphere=False, lane_need=need)
+    n0 = gl.launches
+    gl.gather_lanes(*args, **kw)  # outside the timing
+    got, ms = cuda_timed(lambda: gl.gather_lanes(*args, **kw), 5)
+    gl.launches = n0  # comparison launches are not main-path launches
+    ref, plain_ms = cuda_timed(lambda: gl.gather_lanes_reference(
+        *args, max_elems=PLAIN_ELEMS, **kw))
+    err = rel_err(got, ref)
+    live = int((planes[3] != 0).sum())
+    bound_ms, bound_by = lane_bound(planes[3], need,
+                                    ops_per_sample("point", int(valid.sum())),
+                                    16 * int(valid.sum()))
+    fields = dict(Cp=planes[0].shape[0], Rc=planes[0].shape[1],
+                  lights=int(valid.sum()), live_samples=live,
+                  used_samples=int(need.sum()), max_rel_err=err,
+                  max_abs_err=float((got - ref).abs().max()), tol=RTOL_EXACT,
+                  ms=ms, plain_ms=plain_ms,
+                  ns_per_live_sample=ms * 1e6 / max(live, 1),
+                  bound_ms=bound_ms, bound_by=bound_by)
+    emit("options_asset_row1", view=label, **fields)
+    if not err <= RTOL_EXACT:
+        raise AssertionError(f"options asset {label}: point kernel vs plain "
+                             f"rel err {err:.3g} > {RTOL_EXACT:g}")
+    return fields
+
+
+def clip_loss(r, clip_box, every: int = 4, tile: int = 65536):
+    """Question (c): trilinear samples the occupied-box clip leaves out.
+    Every ``every``-th camera ray is marched trilinearly with and without
+    the clip box; counts the unclipped march's samples of nonzero density
+    that lie outside the clipped march's [tmin, tmax), and the largest
+    difference of a ray's summed weights."""
+    import torch
+
+    from volumerenderer_tpu_torch.ops import march as march_ops
+    from volumerenderer_tpu_torch.render.color import camera_rays_index
+
+    o_i, d_i = camera_rays_index(r.grid, r.params, r.config)
+    o_i, d_i = o_i[::every].contiguous(), d_i[::every].contiguous()
+    p = r.params
+    kw = dict(ray_max_distance=p.ray_max_distance,
+              step_size=p.ray_marching_step_size,
+              absorption=p.absorption_coefficient,
+              max_steps=r._max_steps, interpolation="trilinear")
+    lost, lost_max, wsum_diff = 0, 0.0, 0.0
+    for a in range(0, o_i.shape[0], tile):
+        o, d = o_i[a:a + tile], d_i[a:a + tile]
+        full = march_ops.march(r.grid, o, d, **kw)
+        clipped = march_ops.march(r.grid, o, d, clip_box=clip_box, **kw)
+        out = ((full.val > 0) & full.active
+               & ((full.t < clipped.tmin[:, None])
+                  | (full.t >= clipped.tmax[:, None])))
+        lost += int(out.sum())
+        lost_max = max(lost_max, float(torch.where(out, full.val, 0.0).max()))
+        wsum_diff = max(wsum_diff, float(
+            (full.weight.sum(-1) - clipped.weight.sum(-1)).abs().max()))
+        del full, clipped, out
+    return dict(rays=int(o_i.shape[0]), lost_samples=lost,
+                lost_max_density=lost_max,
+                max_ray_weight_sum_diff=wsum_diff)
+
+
+def phase_options_asset(g):
+    """The asset at 1920x1080 under trilinear through the host-banded
+    build at the full step budget: RAY discrete exact, the image against
+    nearest's, row 2 then row 1 against plain on its band with the most
+    live samples (each beside the nearest view's), the occupied-box clip's
+    trilinear samples."""
+    import torch
+
+    import volumerenderer_tpu_torch as vt
+    from volumerenderer_tpu_torch.ops.kernels import gather_lanes as gl
+    from volumerenderer_tpu_torch.ops.kernels import gather_segments as gs
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r = asset_session(g, BENCH_W, BENCH_H, vt.Algorithm.RAY,
+                      interpolation="trilinear")
+    max_steps = r._max_steps
+    clip_box, view_steps = r._occupied_clip()
+    steps = min(max_steps, view_steps)
+    if r._device_build_ok(steps):
+        raise AssertionError("options asset: the trilinear view fits the "
+                             "device budget; the host-banded build is not "
+                             "exercised")
+    syncs0 = r.host_syncs
+    view, build_s = timed(lambda: r._current_view(max_steps))
+    if not view.caps:
+        raise AssertionError("options asset: the view did not come from the "
+                             "host-banded build")
+    build_syncs = r.host_syncs - syncs0
+    build_peak = torch.cuda.max_memory_allocated()
+    r.step(2)
+    for k in gs.launches:
+        gs.launches[k] = 0
+    frames = 8
+    syncs0 = r.host_syncs
+    _, dt = timed(lambda: r.step(frames))
+    launches = dict(gs.launches)
+    check_image("RAY trilinear", r)
+    if launches["discrete"] == 0:
+        raise AssertionError("options asset RAY: no discrete kernel launched")
+    stored = sum(b.weight.numel() for b in view.bands)
+    emit("options_asset", interpolation="trilinear", max_steps=max_steps,
+         steps=steps, bands=len(view.bands), caps=list(view.caps),
+         lanes=[int(b.wx.shape[1]) for b in view.bands],
+         plane_shapes=[list(b.wx.shape) for b in view.bands],
+         view_bytes=sum(16 * b.wx.numel() + 4 * b.lane_need.numel()
+                        for b in view.bands),
+         build_ms=build_s * 1e3, build_host_syncs=build_syncs,
+         build_max_memory_allocated=build_peak,
+         stored_samples=stored,
+         used_samples=sum(int(b.lane_need.sum()) for b in view.bands),
+         live_samples=sum(int((b.weight != 0).sum()) for b in view.bands),
+         ms_per_frame=dt / frames * 1e3,
+         mrays_per_s=BENCH_W * BENCH_H * frames / dt / 1e6,
+         host_syncs_per_frame=(r.host_syncs - syncs0) / frames,
+         launches=launches,
+         launches_per_frame={k: v / frames for k, v in launches.items()},
+         view_exact=bool(r.view_exact),
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         segments_last_frame=int(r.lights.count[0]))
+
+    # The nearest session at the same frame: the images differ; row 2 on
+    # its widest band beside the trilinear one's, per live sample.
+    rn = asset_session(g, BENCH_W, BENCH_H, vt.Algorithm.RAY)
+    rn.step(2 + frames)
+    diff = (r.state.accum - rn.state.accum).abs()
+    emit("options_asset_vs_nearest", max_abs_diff=float(diff.max()),
+         mean_abs_diff=float(diff.mean()),
+         nearest_live_samples=sum(int((b.weight != 0).sum())
+                                  for b in rn._view.bands),
+         nearest_stored_samples=sum(b.weight.numel()
+                                    for b in rn._view.bands))
+    if not float(diff.max()) > 1e-3:
+        raise AssertionError("options asset: the trilinear image equals the "
+                             "nearest one")
+    row2 = asset_row2(r, view, "trilinear")
+    asset_row2(rn, rn._view, "nearest")
+    asset_row1(rn, rn._view, "nearest")
+    del rn, diff
+    torch.cuda.empty_cache()
+
+    # Row 1 (POINT) over the same view.
+    r.set_algorithm(vt.Algorithm.POINT)
+    gl.launches = 0
+    _, dt = timed(lambda: r.step(2))
+    point_launches = gl.launches
+    check_image("POINT trilinear", r)
+    if point_launches == 0:
+        raise AssertionError("options asset POINT: no lane kernel launched")
+    emit("options_asset_point", seconds_2frames=dt, launches=point_launches)
+    row1 = asset_row1(r, view, "trilinear")
+
+    emit("options_asset_clip", **clip_loss(r, clip_box))
+    del r, view
+    torch.cuda.empty_cache()
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    return [("gather_segments_discrete[ray,exact] trilinear asset", "discrete",
+             launches["discrete"], {k: row2[k] for k in keys}),
+            ("gather_lanes[exact] trilinear asset", "lanes", point_launches,
+             {k: row1[k] for k in keys})]
+
+
+OPTION_RUNS = (  # (label, algorithm, StaticConfig fields) of options_bench
+    ("POINT exact compact", "POINT", {}),
+    ("RAY discrete exact compact", "RAY", {}),
+    ("RAY analytic paired compact", "RAY",
+     dict(segment_mode="analytic", segment_eval="paired")),
+    ("POINT exact slots", "POINT", dict(compact_view=False)),
+    ("RAY discrete exact slots", "RAY", dict(compact_view=False)),
+)
+
+
+def phase_options_bench():
+    """The bench config under trilinear: the compact view (the device
+    build in identity order, no occupancy read) and the slots view; rows
+    4 and 5 against plain on SLOT_RAYS rays of the ViewCache; the slots
+    images against the compact ones."""
+    import torch
+
+    import volumerenderer_tpu_torch as vt
+    from volumerenderer_tpu_torch.ops.kernels import gather_lanes as gl
+    from volumerenderer_tpu_torch.ops.kernels import gather_segments as gs
+    from volumerenderer_tpu_torch.ops.kernels import gather_vpu as gv
+
+    images, entries = {}, []
+    for label, algo_name, cfg in OPTION_RUNS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r = bench_renderer("exact", vt.Algorithm[algo_name],
+                           interpolation="trilinear", **cfg)
+        r.step(8)  # the view build and one batch
+        gl.launches = 0
+        for counts in (gs.launches, gv.launches):
+            for k in counts:
+                counts[k] = 0
+        frames = 8
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.step(frames)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {"lanes": gl.launches, **gs.launches,
+                    **{f"slots_{k}": v for k, v in gv.launches.items()}}
+        check_image(f"bench trilinear {label}", r)
+        slots = "compact_view" in cfg
+        if slots:
+            key, kind = slot_kind(algo_name, "discrete")
+            n = launches[f"slots_{key}"]
+        else:
+            key = "lanes" if algo_name == "POINT" else cfg.get(
+                "segment_mode", "discrete")
+            n = launches[key]
+            v = r._view
+            identity = bool(torch.equal(
+                v.src[:v.n_rays].to(torch.int64),
+                torch.arange(v.n_rays, device=v.src.device)))
+            if v.caps or v.host_syncs or not identity:
+                raise AssertionError(f"bench trilinear {label}: not the "
+                                     "identity-ordered device build")
+        if n == 0:
+            raise AssertionError(f"bench trilinear {label}: no {key} kernel "
+                                 "launched")
+        weights = ([r._view.weight] if slots
+                   else [b.weight for b in r._view.bands])
+        fields = dict(run=label, ms_per_frame=dt / frames * 1e3,
+                      mrays_per_s=BENCH_W * BENCH_H * frames / dt / 1e6,
+                      launches={k: v for k, v in launches.items() if v},
+                      launches_per_frame=n / frames,
+                      stored_samples=sum(w.numel() for w in weights),
+                      live_samples=sum(int((w != 0).sum()) for w in weights),
+                      max_memory_allocated=torch.cuda.max_memory_allocated())
+        if slots:
+            ref = images[label.replace("slots", "compact")]
+            img = r.state.accum
+            excess = float(((img - ref).abs() - 1e-5 * ref.abs()).max())
+            fields.update(vs_compact_max_abs=float((img - ref).abs().max()),
+                          vs_compact_ok=excess <= 1e-7)
+            if not excess <= 1e-7:
+                raise AssertionError(f"bench trilinear {label}: the slots "
+                                     "image differs from the compact one "
+                                     "beyond rtol 1e-5, atol 1e-7")
+            variant = "point" if algo_name == "POINT" else "ray"
+            entries.append((f"{key}[{variant},exact] trilinear", key, n,
+                            slots_row(r, kind)))
+        else:
+            images[label] = r.state.accum.clone()
+        emit("options_bench", **fields)
+        del r
+    return entries
+
+
+def slots_row(r, kind):
+    """Row 4 (POINT) or row 5 (RAY discrete) against its plain version on
+    SLOT_RAYS rays of the live ViewCache around the image centre."""
+    import torch
+
+    from volumerenderer_tpu_torch.ops.kernels import gather_vpu as gv
+
+    v = r._view
+    a = max(0, min(v.n_rays // 2 - SLOT_RAYS // 2, v.wx.shape[0] - SLOT_RAYS))
+    planes = [t[a:a + SLOT_RAYS].contiguous()
+              for t in (v.wx, v.wy, v.wz, v.weight)]
+    lights = next_lights(r)
+    segs = (lights.pos_from[0], lights.pos_to[0], lights.intensity[0],
+            lights.valid[0])
+    step = r.params.light_ray_step_size
+    once = 0
+    if kind == "vpu":
+        valid = segs[3].to(torch.int32)
+        count = int(valid.sum())
+        light_args = (lights.pos_to[0], lights.intensity[0],
+                      int(valid.argmax()), count)
+        kw = dict(sphere=False, paired=False)
+        per_sample, table = ops_per_sample("point", lights=count), 16 * count
+    else:
+        light_args = None
+        kw = dict(sphere_radius=None, paired=False)
+        per_sample = ops_per_sample("discrete-ray", segs=segs, step=step)
+        once = call_ops("discrete-ray", segs=segs, step=step)
+        table = 32 * segs[0].shape[0]
+    n0 = dict(gv.launches)
+    err, abs_err, ms, plain_ms, _ = run_slot_kernel(
+        kind, planes, segs, light_args, step, kw, reps=5)
+    gv.launches.update(n0)  # comparison launches are not main-path launches
+    tol = slot_tol(kind, kw)
+    bound_ms, bound_by = slot_bound(planes[3], per_sample, table, once)
+    emit("options_bench_slotshapes", kernel=kind, R=SLOT_RAYS,
+         C=planes[0].shape[1], live_samples=int((planes[3] != 0).sum()),
+         max_rel_err=err, max_abs_err=abs_err, tol=tol, ms=ms,
+         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    if not err <= tol:
+        raise AssertionError(f"bench trilinear: {kind} slot kernel vs plain "
+                             f"rel err {err:.3g} > {tol:g}")
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_options_u8():
+    """POINT exact at the bench config with accum_dtype="uint8": after
+    step(1) the accumulator equals a float32 session's, quantized, bit for
+    bit; after step(8) every value lies on the k/255 grid."""
+    import torch
+
+    import volumerenderer_tpu_torch as vt
+    from volumerenderer_tpu_torch.ops.kernels import gather_lanes as gl
+
+    r8 = bench_renderer("exact", vt.Algorithm.POINT, accum_dtype="uint8")
+    rf = bench_renderer("exact", vt.Algorithm.POINT)
+    r8.step(1)
+    rf.step(1)
+    want = torch.round(torch.clamp(rf.state.accum, 0.0, 1.0) * 255.0) / 255.0
+    first_equal = bool(torch.equal(r8.state.accum, want))
+    del rf, want
+    gl.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r8.step(7)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    a = r8.state.accum
+    on_grid = bool(torch.equal(a, torch.round(a * 255.0) / 255.0))
+    emit("options_u8", first_frame_equals_quantized_f32=first_equal,
+         on_grid_after_8=on_grid, frames=r8.state.frame_count,
+         ms_per_frame=dt / 7 * 1e3, launches=gl.launches,
+         levels=int(torch.unique(a).numel()), max=float(a.max()))
+    if not (first_equal and on_grid and gl.launches > 0
+            and float(a.max()) > 0):
+        raise AssertionError("options u8: the quantized accumulator is off "
+                             "the k/255 grid, differs from the quantized "
+                             "float32 frame, or no kernel launched")
+
+
+def phase_options():
+    """The slice options (trilinear, uint8): the asset, the bench config
+    and the uint8 accumulator; returns the kernel line's entries."""
+    import volumerenderer_tpu_torch as vt
+
+    t0 = time.perf_counter()
+    g = vt.grid.load(str(ASSET_DIR / "asset.vdb"), device=DEV)
+    entries = phase_options_asset(g)
+    del g
+    entries += phase_options_bench()
+    phase_options_u8()
+    emit("options_phase", seconds=time.perf_counter() - t0)
+    return entries
+
+
+def phase_density():
+    """The density harness on the asset loaded from .vdb: the reference's
+    CPU_test as it is (256x256, camera (0, 250, -800), fov 45, t_max 1200,
+    dt 1, world-as-index), and at 1920x1080 with apply_transform=True from
+    the asset's camera."""
+    import torch
+
+    import volumerenderer_tpu_torch as vt
+    from volumerenderer_tpu_torch.render import density
+
+    g = vt.grid.load(str(ASSET_DIR / "asset.vdb"), device=DEV)
+    runs = (("reference harness", {}),
+            ("1080p transform", dict(width=BENCH_W, height=BENCH_H,
+                                     camera_pos=ASSET_CAMERA,
+                                     apply_transform=True)))
+    for label, kw in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = density.render_density(g, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        u8 = density.to_grayscale_u8(img)
+        emit("density", run=label, shape=list(img.shape), seconds=dt,
+             max=float(img.max()), nonzero=int((img > 0).sum()),
+             gray_max=int(u8.max()), finite=bool(torch.isfinite(img).all()))
+        if not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"density {label}: not finite")
+        if kw and not float(img.max()) > 0:
+            raise AssertionError(f"density {label}: all zero")
+
+
+def phase_aux():
+    """Checkpoint, debug views, profiling, memory statistics and the viewer
+    on the card: a 1080p asset RAY session."""
+    import glob
+    import importlib.util
+    import os
+
+    import numpy as np
+    import torch
+
+    import volumerenderer_tpu_torch as vt
+    from volumerenderer_tpu_torch import viewer
+    from volumerenderer_tpu_torch.io import checkpoint
+    from volumerenderer_tpu_torch.render import debug_views
+    from volumerenderer_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    g = vt.grid.load(str(ASSET_DIR / "asset.vdb"), device=DEV)
+    r = asset_session(g, BENCH_W, BENCH_H, vt.Algorithm.RAY)
+    r.step(3)
+    ckpt = str(ASSET_DIR / "aux_checkpoint.npz")
+    checkpoint.save(r, ckpt)
+    lit = {name: int(fn(r.params, r.lights, r.config).sum())
+           for name, fn in (("point", debug_views.view_point_lights),
+                            ("ray", debug_views.view_ray_lights))}
+    log_dir = str(ASSET_DIR / "trace")
+    for f in glob.glob(os.path.join(log_dir, "*.json")):
+        os.remove(f)
+    with profiling.trace(log_dir) as prof:
+        r.step(1)
+        torch.cuda.synchronize()
+    with open(prof.trace_path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    traced = sorted(n for n in names if "discrete_kernel" in n)
+    r.step(1)
+    want = r.image()
+    r2 = asset_session(g, BENCH_W, BENCH_H, vt.Algorithm.POINT)
+    checkpoint.load(r2, ckpt)
+    resumed_at = r2.state.frame_count
+    r2.step(2)
+    resumed_equal = bool(np.array_equal(r2.image(), want))
+    stats = profiling.device_memory_stats()
+    del r, r2
+    torch.cuda.empty_cache()
+    rv = asset_session(g, 512, 512, vt.Algorithm.RAY)
+    png = ASSET_DIR / "offline.png"
+    img = viewer.render_offline(rv, 4, str(png))
+    tick = "matplotlib not installed"
+    if importlib.util.find_spec("matplotlib") is not None:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        v = viewer.InteractiveViewer(rv)
+        v.tick()
+        tick = v.fps_text.get_text()
+    emit("aux", lit_pixels=lit, checkpoint_resumed_at=resumed_at,
+         checkpoint_resume_bit_equal=resumed_equal,
+         trace_file=os.path.basename(prof.trace_path),
+         trace_bytes=os.path.getsize(prof.trace_path),
+         trace_discrete_kernels=traced[:3],
+         memory_stats_devices=sorted(stats),
+         peak_allocated=stats["cuda:0"].get("allocated_bytes.all.peak"),
+         offline_png_bytes=png.stat().st_size,
+         offline_shape=list(img.shape), viewer_tick=tick,
+         seconds=time.perf_counter() - t0)
+    if not (resumed_at == 3 and resumed_equal):
+        raise AssertionError("aux: the checkpoint did not resume bit for bit")
+    if not (lit["point"] > 0 and lit["ray"] > 0):
+        raise AssertionError(f"aux: a debug view lit no pixel: {lit}")
+    if not traced:
+        raise AssertionError("aux: the trace names no discrete kernel")
+    if "cuda:0" not in stats or not stats["cuda:0"]:
+        raise AssertionError("aux: no memory statistics for cuda:0")
+    if img.shape != (512, 512, 3) or not png.stat().st_size:
+        raise AssertionError("aux: render_offline wrote no 512x512 PNG")
+
+
 def main() -> int:
     if not (PKG / "__init__.py").is_file():
         print(f"chip_smoke: {PKG} not found; run from a checkout of the "
@@ -2049,6 +2658,9 @@ def main() -> int:
         many_runs[label] = (launches, phase_many_shapes(r, label))
         del r
     phase_asset()
+    option_runs = phase_options()
+    phase_density()
+    phase_aux()
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
 
@@ -2084,6 +2696,14 @@ def main() -> int:
             name=name, route="cuda",
             source="volumerenderer_tpu_torch/csrc/gather_many.cu",
             replaces=REPLACES["many"], launches=launches, **v))
+    for name, key, launches, v in option_runs:
+        route_file = {"lanes": "gather_lanes.cu",
+                      "discrete": "gather_segments.cu"}.get(key,
+                                                            "gather_vpu.cu")
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"volumerenderer_tpu_torch/csrc/{route_file}",
+            replaces=REPLACES[key], launches=launches, library_ms=None, **v))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

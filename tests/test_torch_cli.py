@@ -1,7 +1,7 @@
 """The port's command line (``python -m volumerenderer_tpu_torch``) on the
 CPU: ``render`` against the JAX package's ``_make_renderer`` session on the
 same arguments, stepped the same way, in every ``--fast`` tier; PNG and PPM
-output; ``bench`` and ``warmup``; ``view`` not ported."""
+output; ``bench`` and ``warmup``; ``view`` opening the viewer."""
 
 import argparse
 import subprocess
@@ -14,6 +14,7 @@ import pytest
 from volumerenderer_tpu import __main__ as jcli
 from volumerenderer_tpu.grid import ingest as jingest
 from volumerenderer_tpu.grid import procedural as jprocedural
+import volumerenderer_tpu_torch as vt
 from volumerenderer_tpu_torch import __main__ as tcli
 from volumerenderer_tpu_torch.io import ppm
 
@@ -94,9 +95,25 @@ def test_render_png_decodes(tmp_path, volume):
         np.testing.assert_array_equal(np.asarray(im), r.image_u8())
 
 
-def test_view_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tcli.main(["view", "--device", "cpu"])
+def test_view_is_not_ported(monkeypatch):
+    """The ``view`` command raised until the viewer was ported: it now
+    opens InteractiveViewer (its blocking ``run`` patched out here, under
+    matplotlib's Agg backend) with --motion and --algorithm applied."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    from volumerenderer_tpu_torch import viewer
+
+    seen = []
+    monkeypatch.setattr(viewer.InteractiveViewer, "run",
+                        lambda self: seen.append(self))
+    assert tcli.main(["view", "--device", "cpu", "--size", "16",
+                      "--algorithm", "POINT", "--motion", "truncated"]) == 0
+    (v,) = seen
+    r = v.renderer
+    assert r.algorithm is vt.Algorithm.POINT
+    assert r.config.motion_mode == "truncated" and r.first_frame_uncached
+    assert (r.config.width, r.config.height) == (16, 16)
 
 
 @pytest.mark.parametrize("cmd", ["bench", "warmup"])

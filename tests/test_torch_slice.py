@@ -167,24 +167,31 @@ def test_unported_algorithms_raise(small, name):
     ("segment_mode", "discrete_expanded"),
 ])
 def test_unported_config_values_raise(small, field, value):
-    """Values not ported yet raise naming their ROADMAP item.
-    segment_mode="discrete_expanded" at the default 16,384 slots raised
-    until the many-light gather was ported, compact_build="host" and
-    gather_samples > 0 until the host-banded build was: they now construct
-    and render."""
-    if field in ("segment_mode", "compact_build", "gather_samples"):
-        config = dataclasses.replace(small.config, **{field: value})
-        assert config.expanded_light_capacity == 16384
-        r = vt.Renderer(small.grid, config, small.params,
-                        algorithm=vt.Algorithm.RAY)
-        r.step(2)
-        img = r.image()
-        assert np.isfinite(img).all() and img.max() > 0
-        if field != "segment_mode":  # the host-banded build
-            assert r._view.caps
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vt.StaticConfig(**{field: value})
+    """Every StaticConfig value that raised until its slice was ported now
+    constructs and renders: segment_mode="discrete_expanded" at the
+    default 16,384 slots (the many-light gather), compact_build="host" and
+    gather_samples > 0 (the host-banded build), interpolation="trilinear"
+    (the device build then reads no occupancy: no host read; the image
+    differs from nearest's) and
+    accum_dtype="uint8" (every value on the k/255 grid).  No value of
+    StaticConfig raises NotImplementedError any more."""
+    config = dataclasses.replace(small.config, **{field: value})
+    assert config.expanded_light_capacity == 16384
+    r = vt.Renderer(small.grid, config, small.params,
+                    algorithm=vt.Algorithm.RAY)
+    r.step(2)
+    img = r.image()
+    assert np.isfinite(img).all() and img.max() > 0
+    if field in ("compact_build", "gather_samples"):  # the host-banded build
+        assert r._view.caps
+    if field == "interpolation":
+        assert r._view.host_syncs == 0 and not r._view.caps
+        near = vt.Renderer(small.grid, small.config, small.params,
+                           algorithm=vt.Algorithm.RAY)
+        near.step(2)
+        assert np.abs(img - near.image()).max() > 1e-3
+    if field == "accum_dtype":
+        np.testing.assert_array_equal(img, np.round(img * 255.0) / 255.0)
 
 
 def test_default_renderer_renders_ray(small):

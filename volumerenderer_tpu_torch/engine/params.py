@@ -5,9 +5,6 @@
     reference package's f32 value), vectors are f32 numpy arrays.
   * ``StaticConfig`` — image size and every capacity that sizes an array,
     with the reference package's field names and defaults.
-
-Values the port does not cover yet raise ``NotImplementedError`` naming
-the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -100,19 +97,11 @@ class RenderParams:
         return dataclasses.replace(self, **fields)
 
 
-# StaticConfig value -> the ROADMAP item that ports it.
-_UNPORTED_CONFIG = {
-    ("interpolation", "trilinear"): "ROADMAP Queue 1 item 14 (slice options)",
-    ("accum_dtype", "uint8"): "ROADMAP Queue 1 item 14 (slice options)",
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class StaticConfig:
     """Image size and capacities, with the reference package's field
-    names and defaults (see there for each knob).  It holds the fields
-    this slice reads and those whose other values raise; later slices add
-    theirs.  Knobs that only tuned TPU formulations are not carried over."""
+    names and defaults (see there for each knob).  Knobs that only tuned
+    TPU formulations are not carried over."""
 
     width: int = 1024
     height: int = 1024
@@ -158,6 +147,9 @@ class StaticConfig:
     # ("gauss2"); the weights' sums are kept (render.color.decimate_view).
     gather_stride: int = 1
     gather_fold: str = "centroid"
+    # "nearest" (the reference's voxel fetch) or "trilinear" (8 taps; the
+    # builds then take no occupancy count or cap: every ray at the full
+    # step budget).  PATH and the photon walk always fetch nearest.
     interpolation: str = "nearest"
     # Point/Sphere light-loop arithmetic:
     #   "exact"  — one guarded divide per (sample, light), the reference's
@@ -214,6 +206,8 @@ class StaticConfig:
     shadow_lut_max_radius: int = 2
     probe_tile: int = 262144  # rays per occupancy-count tile
     build_tile: int = 65536  # rays per march tile of the view build
+    # "uint8": each frame's average is quantized to the reference's rgba8
+    # storage image (engine.state.accumulate).
     accum_dtype: str = "float32"
 
     def __post_init__(self):
@@ -243,12 +237,6 @@ class StaticConfig:
             raise ValueError("StaticConfig.gather_stride must be >= 1")
         if self.path_stride < 1:
             raise ValueError("StaticConfig.path_stride must be >= 1")
-        for (field, value), item in _UNPORTED_CONFIG.items():
-            if getattr(self, field) == value:
-                raise NotImplementedError(
-                    f"StaticConfig.{field}={value!r} is not ported to "
-                    f"PyTorch yet: {item}"
-                )
 
     @property
     def photon_grid(self) -> int:

@@ -48,7 +48,7 @@ from ..ops.march import f32
 from ..render.color import (
     CompactView, build_compact_view_device, build_view_rays,
     camera_rays_index, decimate_view, merge_row_views,
-    occupancy_counts_rays, required_march_steps,
+    occupancy_counts_rays, occupancy_gated, required_march_steps,
 )
 from ..render.path import padded_rays, view_bytes
 from .params import (
@@ -302,7 +302,8 @@ class Renderer:
 
         1. camera rays, computed once and fed to both passes below; per-ray
            occupancy counts from the dilated brick table at coarse cells
-           (none at march cell 1: every ray at the full step budget);
+           (none under trilinear or at march cell 1: every ray at the full
+           step budget);
         2. on the host (one read), rays sorted by descending count, stable:
            the lane order, ``inv_map`` and ``src``;
         3. each band of sorted lanes marched at its own cap K_b (its first
@@ -318,7 +319,7 @@ class Renderer:
         n_rays = H * W
         cell = self._march_cell()
         o_i, d_i = camera_rays_index(self.grid, self.params, cfg)
-        if cell > 1:
+        if occupancy_gated(cfg, cell):
             counts = occupancy_counts_rays(
                 self.grid, self.params, cfg, steps, o_i, d_i,
                 clip_box=clip_box, march_cell=cell).cpu().numpy()

@@ -38,8 +38,15 @@ class RenderState:
 
 
 def accumulate(accum: torch.Tensor, frame: torch.Tensor,
-               frame_count: int) -> torch.Tensor:
+               frame_count: int, quantize_u8: bool = False) -> torch.Tensor:
     """Progressive average (point_compute_color.comp:97-105):
-    new = (prev * (N - 1) + frame) / N, N = frameCount (1-based)."""
+    new = (prev * (N - 1) + frame) / N, N = frameCount (1-based).
+
+    The reference's storage image is rgba8, so its accumulator quantizes
+    to 8 bits every frame; ``quantize_u8=True`` does the same (round half
+    to even, as the reference package's ``jnp.round``)."""
     n = float(frame_count)
-    return (accum * (n - 1.0) + frame) / n
+    new = (accum * (n - 1.0) + frame) / n
+    if quantize_u8:
+        new = torch.round(torch.clamp(new, 0.0, 1.0) * 255.0) / 255.0
+    return new

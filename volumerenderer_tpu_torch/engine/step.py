@@ -22,6 +22,11 @@ from .params import Algorithm, RenderParams, StaticConfig
 from .state import RenderState, accumulate
 
 
+def _u8(config: StaticConfig) -> bool:
+    """Whether each frame's average is quantized to 8 bits."""
+    return config.accum_dtype == "uint8"
+
+
 def render_step(grid: DenseGrid, params: RenderParams, state: RenderState,
                 *, algorithm: Algorithm, config: StaticConfig,
                 max_steps: int, gather_samples: int = 0,
@@ -41,13 +46,13 @@ def render_step(grid: DenseGrid, params: RenderParams, state: RenderState,
             grid, params, fc, config, max_steps,
             shadow_lut_radius=shadow_lut_radius, march_cell=march_cell,
             light_step=light_step, trace=trace)
-        return (RenderState(accumulate(accum, frame, fc), fc),
+        return (RenderState(accumulate(accum, frame, fc, _u8(config)), fc),
                 photon.empty_lights(config, grid.device), trace.host_reads)
     lights = photon.generate_lights(grid, params, [fc], config,
                                     max_steps=max_steps)
     frame = color_mod.render_frame(grid, params, lights, algorithm, config,
                                    max_steps, gather_samples=gather_samples)
-    return RenderState(accumulate(accum, frame, fc), fc), lights
+    return RenderState(accumulate(accum, frame, fc, _u8(config)), fc), lights
 
 
 def build_view_step(grid: DenseGrid, params: RenderParams, clip_box=None,
@@ -85,7 +90,7 @@ def render_step_cached(grid: DenseGrid, params: RenderParams,
     lights = photon.generate_lights(grid, params, [fc], config,
                                     max_steps=max_steps)
     frame = color_mod.shade_view(grid, view, params, lights, algorithm, config)
-    return RenderState(accumulate(accum, frame, fc), fc), lights
+    return RenderState(accumulate(accum, frame, fc, _u8(config)), fc), lights
 
 
 def render_steps_cached(grid: DenseGrid, params: RenderParams,
@@ -95,22 +100,24 @@ def render_steps_cached(grid: DenseGrid, params: RenderParams,
     """``n_frames`` frames over a baked view.
 
     The photon walks of all frames run first, as one walk of n_frames x 16
-    photons.  Over a ViewCache each frame then shades and accumulates in
-    image space.  Over a CompactView each frame updates only the (Rc,)
-    lane vector; one expansion to the image runs at the end, where the miss pixels'
-    average over n all-zero frames collapses to a scale by m / (m + n)."""
+    photons.  Over a ViewCache, and with ``accum_dtype="uint8"`` (each
+    frame quantized in image space), each frame then shades and accumulates
+    in image space.  Otherwise over a CompactView each frame updates only
+    the (Rc,) lane vector; one expansion to the image runs at the end,
+    where the miss pixels' average over n all-zero frames collapses to a
+    scale by m / (m + n)."""
     m = state.frame_count
     fcs = [m + 1 + i for i in range(n_frames)]
     lights = photon.generate_lights(grid, params, fcs, config,
                                     max_steps=max_steps)
-    if isinstance(view, color_mod.ViewCache):
+    if isinstance(view, color_mod.ViewCache) or _u8(config):
         accum = state.accum
         for i, fc in enumerate(fcs):
             frame = color_mod.shade_view(grid, view, params, lights,
                                          algorithm, config, frame=i)
             if fc == 1:
                 accum = torch.zeros_like(accum)
-            accum = accumulate(accum, frame, fc)
+            accum = accumulate(accum, frame, fc, _u8(config))
         return RenderState(accum, m + n_frames), lights
     accum_flat = state.accum.reshape(-1)
     accum_c = accum_flat[view.src.to(torch.int64)]
@@ -154,7 +161,7 @@ def render_path_step_cached(grid: DenseGrid, params: RenderParams,
         grid, params, fc, config, max_steps,
         shadow_lut_radius=shadow_lut_radius, cache=cache,
         march_cell=march_cell, light_step=light_step, trace=trace)
-    return (RenderState(accumulate(accum, frame, fc), fc),
+    return (RenderState(accumulate(accum, frame, fc, _u8(config)), fc),
             photon.empty_lights(config, grid.device), trace.host_reads)
 
 
@@ -178,6 +185,6 @@ def render_path_steps_cached(grid: DenseGrid, params: RenderParams,
     for i, fc in enumerate(fcs):
         if fc == 1:
             accum = torch.zeros_like(accum)
-        accum = accumulate(accum, frames[i], fc)
+        accum = accumulate(accum, frames[i], fc, _u8(config))
     return (RenderState(accum, m + n_frames),
             photon.empty_lights(config, grid.device), trace.host_reads)

@@ -10,7 +10,8 @@
 
 Out-of-bbox lookups return 0.0.  On a GPU a plain indexed load does what
 the reference package's fetch formulations do, so ``sample_nearest`` is
-one flat load and the brick tables are plain bool-table indexes.
+one flat load, ``sample_trilinear`` eight, and the brick tables are plain
+bool-table indexes.
 """
 
 from __future__ import annotations
@@ -76,14 +77,42 @@ class DenseGrid:
              for a, n in enumerate(self.voxels.shape)], dim=-1,
         )
 
-    def sample_nearest(self, pos):
-        """Nearest-voxel fetch at floor(pos) for float index-space
-        positions (..., 3); out-of-bbox returns 0."""
-        rel = self._rel(pos)
+    def _fetch(self, rel):
+        """Voxel values at ``rel`` (..., 3) int64 relative to the bbox
+        corner; 0 outside the volume."""
         relc = self._clamp(rel)
         _, ny, nz = self.voxels.shape
         lin = (relc[..., 0] * ny + relc[..., 1]) * nz + relc[..., 2]
         return torch.where(self._inside(rel), self.voxels.reshape(-1)[lin], 0.0)
+
+    def sample_nearest(self, pos):
+        """Nearest-voxel fetch at floor(pos) for float index-space
+        positions (..., 3); out-of-bbox returns 0."""
+        return self._fetch(self._rel(pos))
+
+    def sample_trilinear(self, pos):
+        """Trilinear interpolation at float index-space positions (..., 3),
+        voxel centres at integer + 0.5: 8 nearest fetches, 0 outside the
+        bbox.  The taps, the weight products and the sum run in the
+        reference package's order (dx, dy, dz), so the sums round alike."""
+        p = pos - 0.5
+        p0 = torch.floor(p)
+        f = p - p0
+        rel0 = p0.to(torch.int64) - self.bbox_min
+        # Tap k's offset (dx, dy, dz) = the bits of k, made on the device (a
+        # tensor from a host list would be a blocking copy per tap).
+        k = torch.arange(8, device=pos.device)
+        offs = torch.stack([k >> 2, (k >> 1) & 1, k & 1], dim=-1)
+        acc = 0.0
+        for dx in (0, 1):
+            for dy in (0, 1):
+                for dz in (0, 1):
+                    w = ((f[..., 0] if dx else 1.0 - f[..., 0])
+                         * (f[..., 1] if dy else 1.0 - f[..., 1])
+                         * (f[..., 2] if dz else 1.0 - f[..., 2]))
+                    off = offs[4 * dx + 2 * dy + dz]
+                    acc = acc + w * self._fetch(rel0 + off)
+        return acc
 
     def brick_occupancy_dilated_at(self, pos):
         """1-brick-dilated occupancy at float index positions (..., 3).

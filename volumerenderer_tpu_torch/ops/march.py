@@ -102,15 +102,19 @@ def march(
     step_size: float,
     absorption: float,
     max_steps: int,
+    interpolation: str = "nearest",
     clip_box=None,
     occupied_cap: int | None = None,
     cell: int = 8,
 ) -> MarchResult:
     """March rays given in index space (origins (N, 3), unit dirs (N, 3)).
 
-    ``max_steps`` bounds the trip count.  ``clip_box``: optional (lo, hi)
-    index-space corners of the occupied region (grid.dense.occupied_bbox).
-    ``occupied_cap`` with ``cell > 1``: brick-level empty-space skipping —
+    ``max_steps`` bounds the trip count.  ``interpolation``: "nearest"
+    (the reference's voxel fetch) or "trilinear" (8 taps).  ``clip_box``:
+    optional (lo, hi) index-space corners of the occupied region
+    (grid.dense.occupied_bbox); it clips the trilinear march too, as in the
+    reference package.  ``occupied_cap`` with ``cell > 1`` and nearest
+    sampling: brick-level empty-space skipping —
     the step grid is grouped into cells of ``cell`` samples, the dilated
     brick table is tested at cell endpoints, and the first
     ``ceil(occupied_cap / cell)`` selected cells of each ray expand back to
@@ -120,7 +124,7 @@ def march(
         grid, origin_idx, dir_idx, ray_max_distance, step_size, clip_box
     )
     dev = origin_idx.device
-    if occupied_cap is not None and cell > 1:
+    if occupied_cap is not None and interpolation == "nearest" and cell > 1:
         sel_c, n_cells = _select_cells(
             grid, origin_idx, dir_idx, tmin, tmax, live,
             step_size=step_size, max_steps=max_steps, cell=cell,
@@ -141,7 +145,9 @@ def march(
         sel = None
         k = torch.arange(max_steps, dtype=torch.float32, device=dev)
         t = t_grid(tmin, k, step_size)
-        val = grid.sample_nearest(ray_positions(origin_idx, dir_idx, t))
+        pos = ray_positions(origin_idx, dir_idx, t)
+        val = (grid.sample_trilinear(pos) if interpolation == "trilinear"
+               else grid.sample_nearest(pos))
 
     atten = torch.exp(-val * absorption * step_size)
     # Exclusive cumprod: T before sample k (the shader attenuates after

@@ -117,6 +117,15 @@ def _tiles(n: int, tile: int):
         yield a, min(a + tile, n)
 
 
+def occupancy_gated(config: StaticConfig, march_cell: int) -> bool:
+    """Whether a build reads the brick occupancy: nearest sampling at a
+    coarse cell above 1.  Otherwise (trilinear, as in the reference
+    package, or cell 1) no occupancy count or cap is taken: every ray is
+    marched at the full step budget, and the occupancy order is the
+    identity."""
+    return config.interpolation == "nearest" and march_cell > 1
+
+
 def occupancy_counts_rays(grid, params, config, max_steps: int, o_i, d_i, *,
                           clip_box=None, march_cell: int = 8):
     """Per-ray occupied fine-sample bounds for an explicit ray set, (N,)
@@ -152,7 +161,7 @@ def _march_planes(grid, params, config, max_steps: int, o_i, d_i, *,
     ``gather_samples`` below the march's samples, C = ``gather_samples``
     (``top_k_samples``)."""
     n_rays = o_i.shape[0]
-    cap = occupied_cap if march_cell > 1 else None
+    cap = occupied_cap if occupancy_gated(config, march_cell) else None
     if cap is not None:
         n_cells = -(-max_steps // march_cell)
         kc = min(max(1, -(-min(cap, max_steps) // march_cell)), n_cells)
@@ -176,8 +185,8 @@ def _march_planes(grid, params, config, max_steps: int, o_i, d_i, *,
             ray_max_distance=params.ray_max_distance,
             step_size=params.ray_marching_step_size,
             absorption=params.absorption_coefficient,
-            max_steps=max_steps, clip_box=clip_box, occupied_cap=cap,
-            cell=march_cell,
+            max_steps=max_steps, interpolation=config.interpolation,
+            clip_box=clip_box, occupied_cap=cap, cell=march_cell,
         )
         w, t = m.weight, m.t
         if compact:
@@ -277,7 +286,9 @@ def build_compact_view_device(
     descending occupancy count (stable, so ties keep ray order); misses sink
     to the tail.  Each ``band_lanes``-wide band marches at the cap of its
     busiest lane, read on the host once for all bands.  Exact: every cap
-    covers every lane's occupied count.
+    covers every lane's occupied count.  Without the occupancy read
+    (``occupancy_gated`` false: trilinear, or cell 1) every count is
+    ``steps``, so the order is the identity and no host read is made.
 
     ``order="identity"``: lanes keep ray order and every band marches at
     ``steps`` (no occupancy pre-march, no sort, no host read): the build of
@@ -309,7 +320,7 @@ def build_compact_view_device(
     if order != "occupancy":
         raise ValueError(f"unknown lane order: {order!r}")
 
-    use_occ = march_cell > 1
+    use_occ = occupancy_gated(config, march_cell)
     if use_occ:
         counts = occupancy_counts_rays(
             grid, params, config, steps, o_i, d_i,
@@ -326,24 +337,28 @@ def build_compact_view_device(
     order_p = torch.nn.functional.pad(ordr, (0, pad))
     lane_live = torch.nn.functional.pad(hit[ordr], (0, pad))
     src = torch.where(lane_live, order_p, 0).to(torch.int32)
-    counts_sorted = torch.where(lane_live, counts[order_p], 0)
-
-    band_max = torch.stack(
-        [counts_sorted[s:s + band_lanes].max() for s in starts]
-    ).tolist()  # the one host read of the build
+    if use_occ:
+        counts_sorted = torch.where(lane_live, counts[order_p], 0)
+        caps = torch.stack(
+            [counts_sorted[s:s + band_lanes].max() for s in starts]
+        ).tolist()  # the one host read of the build
+    else:
+        caps = [steps] * len(starts)
     view = _march_bands(
         grid, params, config, steps, o_i, d_i, order_p, lane_live, starts,
-        band_max if use_occ else [steps] * len(starts), band_lanes,
-        clip_box=clip_box, march_cell=march_cell, skip_empty=use_occ,
-        inv_map=inv_map, src=src, n_rays=n_rays, rows=rows, host_syncs=1)
+        caps, band_lanes, clip_box=clip_box, march_cell=march_cell,
+        skip_empty=use_occ, inv_map=inv_map, src=src, n_rays=n_rays,
+        rows=rows, host_syncs=int(use_occ))
     return _maybe_decimate(view, config)
 
 
 def _march_bands(grid, params, config, steps, o_i, d_i, order_p, lane_live,
                  starts, caps, band_lanes, *, clip_box, march_cell,
                  skip_empty, **view_fields) -> CompactView:
-    """March each band of lanes ``order_p[s:s + band_lanes]`` at its cap;
-    with ``skip_empty`` a band of cap 0 (all misses) is not marched."""
+    """March each band of lanes ``order_p[s:s + band_lanes]`` at its cap,
+    the sample axis zero-padded to a multiple of 8 (the reference
+    package's band layout); with ``skip_empty`` a band of cap 0 (all
+    misses) is not marched."""
     lanes_n = order_p.shape[0]
     dev = o_i.device
     bands = []
@@ -361,8 +376,8 @@ def _march_bands(grid, params, config, steps, o_i, d_i, order_p, lane_live,
             clip_box=clip_box, occupied_cap=cap, march_cell=march_cell,
         )
         w = torch.where(live_b[None, :], w, 0.0)
-        bands.append(PlaneBand(wx=wx, wy=wy, wz=wz, weight=w,
-                               lane_need=lane_need_of(w)))
+        bands.append(PlaneBand(wx=pad8(wx), wy=pad8(wy), wz=pad8(wz),
+                               weight=pad8(w), lane_need=lane_need_of(w)))
     return CompactView(bands=tuple(bands), **view_fields)
 
 
