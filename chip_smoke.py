@@ -163,11 +163,32 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                Chrome trace names the discrete kernel);
                device_memory_stats(); viewer.render_offline of 4 frames at
                512x512 to PNG, and one InteractiveViewer.tick under Agg
-               where matplotlib is installed.
+               where matplotlib is installed;
+ 23. mesh      volumerenderer_tpu_torch.parallel at the bench config.
+               (a) a world of one rank under NCCL, in this process: POINT
+               exact and paired, RAY discrete exact and PATH cached through
+               MeshRenderer, each against the single-device Renderer driven
+               by the same step() calls (step(1), step(7), then step(16)
+               timed; PATH step(1), step(1), step(4)) at rtol 1e-6, atol
+               1e-7, with ms/frame of both, kernel launches (counted from 0
+               over the MeshRenderer's run), peak memory and whether the
+               images are equal bit for bit; the run's kernel against its
+               plain version on the mesh's view (shapes, segshapes).  (b) a
+               (2, 2) world of 4 gloo ranks, all on this card (launch):
+               POINT exact and RAY discrete exact through MeshRenderer, and
+               RAY's first frame through light_sharded_radiance, each
+               gathered image within rtol 1e-4, atol 1e-6 of (a)'s
+               single-device frame; each rank's launches (rows 1, 2 and 5
+               on every rank), ms/frame and peak memory; on rank 0 each
+               run's kernel against its plain version at rank 0's inputs
+               (its 540-row band's compact view or, for the light-sharded
+               frame, its slots view, with its half of the light slots:
+               shapes, segshapes, slotshapes).  (c) dryrun_multichip(4) on
+               this card.
 
 The lines before the last are the card's name and power limit as
 nvidia-smi gives them and a JSON object of the kernels, one entry for each
-run of phases 5, 8, 11, 17 and 20 (PATH runs no kernel; the many-light
+run of phases 5, 8, 11, 17, 20 and 23 (PATH runs no kernel; the many-light
 entries after the first two, gather_many[point,exact] and
 gather_many[sphere,exact], add their run's label to the name; each entry
 with its launches in that run and its bound: the larger of its f32
@@ -175,7 +196,10 @@ operations at 67 TFLOP/s and its bytes at 3.35 TB/s, counted for this
 run's inputs; the point lane kernel at the widest band, the others at the
 whole shape a frame launches: the widest band or the whole ViewCache;
 phase 20's entries, named "... trilinear", at the slices they were held
-against plain on); the last line is
+against plain on; phase 23's, named "... mesh", with the launches of the
+world of one's runs, at the mesh view's shapes, and "... mesh (2,2)", with
+rank 0's launches in the (2, 2) world, at rank 0's band and light shard);
+the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
 repository, it exits nonzero and prints no result.
 """
@@ -708,12 +732,9 @@ def phase_shapes(r, tier: str):
     import torch
 
     from volumerenderer_tpu_torch.ops.kernels import gather_lanes as gl
-    from volumerenderer_tpu_torch.render import photon
 
     band = max(r._view.bands, key=lambda b: b.wx.shape[0])
-    lights = photon.generate_lights(
-        r.grid, r.params, [r.state.frame_count + 1], r.config,
-        max_steps=r._max_steps)
+    lights = next_lights(r)
     valid = lights.valid[0].to(torch.int32)
     start, count = torch.argmax(valid), valid.sum()
     args = (band.wx, band.wy, band.wz, band.weight, lights.pos_to[0],
@@ -818,16 +839,13 @@ def phase_segment_shapes(r, algo_name: str, mode: str, tier: str, rule: str):
     frame's segments, on SEG_RC lanes of the live widest band, then on the
     whole widest band, as one frame's launch takes it."""
     from volumerenderer_tpu_torch.ops.kernels import gather_segments as gs
-    from volumerenderer_tpu_torch.render import photon
 
     band = max(r._view.bands, key=lambda b: b.wx.shape[0])
     lanes = slice(0, min(SEG_RC, band.wx.shape[1]))
     full = (band.wx, band.wy, band.wz, band.weight)
     planes = [t[:, lanes].contiguous() for t in full]
     need = band.lane_need[lanes].contiguous()
-    lights = photon.generate_lights(
-        r.grid, r.params, [r.state.frame_count + 1], r.config,
-        max_steps=r._max_steps)
+    lights = next_lights(r)
     segs = (lights.pos_from[0], lights.pos_to[0], lights.intensity[0],
             lights.valid[0])
     kind = "analytic" if mode == "analytic" else "discrete"
@@ -1094,15 +1112,12 @@ def phase_slot_shapes(r, algo_name, tier, mode, seg_tier, rule):
     import torch
 
     from volumerenderer_tpu_torch.ops.kernels import gather_vpu as gv
-    from volumerenderer_tpu_torch.render import photon
 
     v = r._view
     a = max(0, min(v.n_rays // 2 - SLOT_RAYS // 2, v.wx.shape[0] - SLOT_RAYS))
     planes = [t[a:a + SLOT_RAYS].contiguous()
               for t in (v.wx, v.wy, v.wz, v.weight)]
-    lights = photon.generate_lights(
-        r.grid, r.params, [r.state.frame_count + 1], r.config,
-        max_steps=r._max_steps)
+    lights = next_lights(r)
     segs = (lights.pos_from[0], lights.pos_to[0], lights.intensity[0],
             lights.valid[0])
     key, kind = slot_kind(algo_name, mode)
@@ -1646,7 +1661,7 @@ def phase_many_shapes(r, label: str):
 
     import volumerenderer_tpu_torch as vt
     from volumerenderer_tpu_torch.ops.kernels import gather_many as gm
-    from volumerenderer_tpu_torch.render import color, photon
+    from volumerenderer_tpu_torch.render import color
 
     if r.config.compact_view:
         v = max(r._view.bands, key=lambda b: b.wx.shape[0])
@@ -1658,9 +1673,7 @@ def phase_many_shapes(r, label: str):
         cut = lambda t: t[a:a + SLOT_RAYS]
     full = (v.wx, v.wy, v.wz, v.weight)
     planes = [cut(t).contiguous() for t in full]
-    lights = photon.generate_lights(
-        r.grid, r.params, [r.state.frame_count + 1], r.config,
-        max_steps=r._max_steps)
+    lights = next_lights(r)
     pos, inten, valid, dropped = color._expanded_lights(
         lights, r.params, r.algorithm, r.config, 0)
     sphere = r.algorithm in (vt.Algorithm.SPHERE, vt.Algorithm.BEAM)
@@ -2077,11 +2090,17 @@ def lane_slice(band, cut):
 
 
 def next_lights(r):
-    """The lights of the session's next frame."""
+    """The lights of the session's next frame; on a mesh (``r.mesh``), cut
+    to the rank's shard of the light slots, as its kernels take them."""
+    from volumerenderer_tpu_torch.parallel import sharding
     from volumerenderer_tpu_torch.render import photon
 
-    return photon.generate_lights(r.grid, r.params, [r.state.frame_count + 1],
-                                  r.config, max_steps=r._max_steps)
+    lights = photon.generate_lights(r.grid, r.params,
+                                    [r.state.frame_count + 1], r.config,
+                                    max_steps=r._max_steps)
+    mesh = getattr(r, "mesh", None)
+    return lights if mesh is None else sharding._light_shard(lights, mesh,
+                                                             r.config)
 
 
 def asset_row2(r, view, label):
@@ -2613,6 +2632,330 @@ def phase_aux():
         raise AssertionError("aux: render_offline wrote no 512x512 PNG")
 
 
+# The mesh phase: volumerenderer_tpu_torch.parallel at the bench config.
+MESH_RUNS = (  # (label, algorithm, StaticConfig fields) of mesh (a)
+    ("POINT exact", "POINT", {}),
+    ("POINT paired", "POINT", {"gather_eval": "paired"}),
+    ("RAY discrete exact", "RAY", {}),
+    ("PATH cached", "PATH", {}),
+)
+MESH_RANK_RUNS = MESH_RUNS[0], MESH_RUNS[2]  # the (2, 2) world's sessions
+# step() calls of a session, the last one timed: the first frame alone
+# (RAY's is the light-sharded frame's reference), single frames, then
+# batches of 8.  PATH renders single frames.
+MESH_STEPS = {"POINT": (1, 7, 16), "RAY": (1, 7, 16), "PATH": (1, 1, 4)}
+# A world of one against the single-device Renderer: the same view,
+# kernels and sums, so equal but for rounding of the accumulation.
+MESH_RTOL, MESH_ATOL = 1e-6, 1e-7
+# Sharded over "lights" against the single device: JAX's sharded bound
+# (tests/test_sharding.py).
+SHARDED_RTOL, SHARDED_ATOL = 1e-4, 1e-6
+# The kernel each mesh session must launch (REPLACES keys): rows 1, 2, 5.
+MESH_KERNELS = {"POINT": "lanes", "RAY": "discrete", "PATH": None,
+                "RAY light_sharded_radiance": "segment_discrete"}
+
+
+def kernel_counts() -> dict:
+    """Every kernel wrapper's launch count, by REPLACES key."""
+    from volumerenderer_tpu_torch.ops.kernels import gather_lanes as gl
+    from volumerenderer_tpu_torch.ops.kernels import gather_many as gm
+    from volumerenderer_tpu_torch.ops.kernels import gather_segments as gs
+    from volumerenderer_tpu_torch.ops.kernels import gather_vpu as gv
+
+    return {"lanes": gl.launches, **gs.launches, **gv.launches,
+            **gm.launches}
+
+
+def reset_kernel_counts() -> None:
+    from volumerenderer_tpu_torch.ops.kernels import gather_lanes as gl
+    from volumerenderer_tpu_torch.ops.kernels import gather_many as gm
+    from volumerenderer_tpu_torch.ops.kernels import gather_segments as gs
+    from volumerenderer_tpu_torch.ops.kernels import gather_vpu as gv
+
+    gl.launches = 0
+    for counts in (gs.launches, gv.launches, gm.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def require_launches(what: str, counts: dict, key) -> None:
+    if key is not None and counts[key] == 0:
+        raise AssertionError(f"mesh {what}: no {key} kernel launch")
+
+
+def mesh_scene(dev: str, width: int, height: int, algo_name: str, fields):
+    """The bench config's grid, params and config on ``dev``."""
+    import volumerenderer_tpu_torch as vt
+
+    grid = vt.grid.procedural.cloud(n=96, device=dev)
+    params = vt.RenderParams.default().replace(
+        camera_pos=(0.0, 20.0, -75.0), light_source_world_pos=(0.0, 20.0, 20.0))
+    config = vt.StaticConfig(width=width, height=height, **fields)
+    return grid, params, config, vt.Algorithm[algo_name]
+
+
+def drive(session, steps, dev: str):
+    """Run ``session.step`` for each count; returns (ms per frame of the
+    last call, the accumulator after the first call)."""
+    import torch
+
+    session.step(steps[0])
+    first = session.state.accum.clone()
+    for n in steps[1:-1]:
+        session.step(n)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    session.step(steps[-1])
+    sync()
+    return (time.perf_counter() - t0) / steps[-1] * 1e3, first
+
+
+def peak_memory(dev: str):
+    import torch
+
+    return torch.cuda.max_memory_allocated() if dev == "cuda" else None
+
+
+def reset_peak_memory(dev: str) -> None:
+    import torch
+
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def phase_mesh_one():
+    """(a) A world of one rank (NCCL on the card): each MESH_RUNS session
+    through MeshRenderer against the single-device Renderer driven by the
+    same step() calls.  Returns the Renderer's images the (2, 2) world is
+    held against and the kernels line's entries of the mesh path."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import volumerenderer_tpu_torch as vt
+    from volumerenderer_tpu_torch.parallel import sharding
+
+    refs, entries = {}, []
+    backend = "nccl" if DEV == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            mesh = sharding.make_mesh(1, device=DEV)
+            for label, algo_name, fields in MESH_RUNS:
+                grid, params, config, algo = mesh_scene(
+                    DEV, BENCH_W, BENCH_H, algo_name, fields)
+                steps = MESH_STEPS[algo_name]
+                reset_peak_memory(DEV)
+                r = vt.Renderer(grid, config, params, algorithm=algo,
+                                device=DEV)
+                single_ms, first = drive(r, steps, DEV)
+                single_peak = peak_memory(DEV)
+                want = r.state.accum
+                refs[label] = want.cpu()
+                if algo_name == "RAY":
+                    refs["RAY frame 1"] = first.cpu()
+                del r, first
+                reset_peak_memory(DEV)
+                reset_kernel_counts()
+                mr = sharding.MeshRenderer(grid, mesh, config, params, algo)
+                ms, _ = drive(mr, steps, DEV)
+                counts = kernel_counts()
+                got = torch.as_tensor(mr.image()[..., 0], device=DEV)
+                frames = sum(steps)
+                if not (bool(torch.isfinite(got).all())
+                        and float(got.max()) > 0):
+                    raise AssertionError(f"mesh {label}: image not finite "
+                                         "or all zero")
+                emit("mesh", part="a", run=label, world=1,
+                     backend=dist.get_backend(), mesh=list(mesh.shape),
+                     frames=frames, ms_per_frame=ms,
+                     single_ms_per_frame=single_ms, launches=counts,
+                     launches_per_frame={k: v / frames
+                                         for k, v in counts.items() if v},
+                     max_memory_allocated=peak_memory(DEV),
+                     single_max_memory_allocated=single_peak,
+                     bit_equal=bool(torch.equal(got, want)),
+                     max_abs_err=float((got - want).abs().max()),
+                     rtol=MESH_RTOL, atol=MESH_ATOL)
+                require_launches(label, counts, MESH_KERNELS[algo_name])
+                if not torch.allclose(got, want, rtol=MESH_RTOL,
+                                      atol=MESH_ATOL):
+                    raise AssertionError(
+                        f"mesh {label}: the world of one differs from the "
+                        f"Renderer by {float((got - want).abs().max()):.3g}")
+                key = MESH_KERNELS[algo_name]
+                if key == "lanes":
+                    tier = config.gather_eval
+                    entries.append(dict(
+                        name=f"gather_lanes[{tier}] mesh", route="cuda",
+                        source="volumerenderer_tpu_torch/csrc/gather_lanes.cu",
+                        replaces=REPLACES[key], launches=counts[key],
+                        **phase_shapes(mr, tier)))
+                elif key == "discrete":
+                    entries.append(dict(
+                        name="gather_segments_discrete[ray,exact] mesh",
+                        route="cuda",
+                        source="volumerenderer_tpu_torch/csrc/"
+                               "gather_segments.cu",
+                        replaces=REPLACES[key], launches=counts[key],
+                        **phase_segment_shapes(mr, "RAY", "discrete",
+                                               "exact", "midpoint")))
+                del mr, got, want
+        finally:
+            dist.destroy_process_group()
+    return refs, entries
+
+
+def mesh_rank(out_dir: str, dev: str, width: int, height: int) -> None:
+    """A rank of the (2, 2) world: MESH_RANK_RUNS through MeshRenderer and
+    RAY's first frame through light_sharded_radiance; writes its launches,
+    peak memory and ms/frame, and (rank 0) the gathered images and each
+    run's kernel against its plain version at rank 0's inputs: its band's
+    view and its shard of the light slots (the other ranks wait)."""
+    import types
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from volumerenderer_tpu_torch.engine.state import RenderState
+    from volumerenderer_tpu_torch.parallel import sharding
+    from volumerenderer_tpu_torch.render.color import required_march_steps
+
+    mesh = sharding.make_mesh(2, device=dev)
+    rank = dist.get_rank()
+    out = dict(rank=rank, rows_index=mesh.get_local_rank("rows"),
+               lights_index=mesh.get_local_rank("lights"),
+               device=str(sharding.mesh_device(mesh)),
+               backend=dist.get_backend())
+    images, kernels = {}, {}
+    check = rank == 0
+    for label, algo_name, fields in MESH_RANK_RUNS:
+        grid, params, config, algo = mesh_scene(dev, width, height,
+                                                algo_name, fields)
+        reset_peak_memory(dev)
+        reset_kernel_counts()
+        mr = sharding.MeshRenderer(grid, mesh, config, params, algo)
+        ms, _ = drive(mr, MESH_STEPS[algo_name], dev)
+        out[label] = dict(launches=kernel_counts(), ms_per_frame=ms,
+                          max_memory_allocated=peak_memory(dev))
+        images[label] = mr.image()[..., 0]
+        if check:
+            kernels[label] = (
+                phase_shapes(mr, "exact") if algo_name == "POINT" else
+                phase_segment_shapes(mr, "RAY", "discrete", "exact",
+                                     "midpoint"))
+        dist.barrier()
+        del mr
+    label = "RAY light_sharded_radiance"
+    reset_peak_memory(dev)
+    reset_kernel_counts()
+    band = sharding.shard_rows(mesh, torch.zeros((height, width)))
+    frame = sharding.light_sharded_radiance(
+        grid, params, RenderState(band, 0), algorithm=algo, config=config,
+        max_steps=required_march_steps(grid, params.ray_marching_step_size,
+                                       config.max_march_steps), mesh=mesh)
+    out[label] = dict(launches=kernel_counts(),
+                      max_memory_allocated=peak_memory(dev))
+    images[label] = sharding.gather_rows(mesh, frame).cpu().numpy()
+    if check:  # the band's slots view, as render_frame marches it
+        steps = required_march_steps(grid, params.ray_marching_step_size,
+                                     config.max_march_steps)
+        uncached = types.SimpleNamespace(
+            _view=sharding.build_view_sharded(
+                grid, params, config=config, max_steps=steps, mesh=mesh),
+            grid=grid, params=params, config=config, _max_steps=steps,
+            mesh=mesh, state=RenderState(band, 0))
+        kernels[label] = phase_slot_shapes(uncached, "RAY", "exact",
+                                           "discrete", "exact", "midpoint")
+        out["kernels"] = kernels
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    if rank == 0:
+        np.savez(Path(out_dir, "images.npz"), **images)
+
+
+# (b)'s kernels line entries: (run label, REPLACES key, name, source).
+MESH_RANK_KERNELS = (
+    ("POINT exact", "lanes", "gather_lanes[exact]", "gather_lanes.cu"),
+    ("RAY discrete exact", "discrete", "gather_segments_discrete[ray,exact]",
+     "gather_segments.cu"),
+    ("RAY light_sharded_radiance", "segment_discrete",
+     "segment_discrete[ray,exact]", "gather_vpu.cu"),
+)
+
+
+def phase_mesh_ranks(refs):
+    """(b) A (2, 2) world of 4 gloo ranks, all on this card: each run's
+    gathered image within SHARDED_RTOL/ATOL of (a)'s single-device frame
+    (the light-sharded frame of the Renderer's first RAY frame), and on
+    every rank a launch of the run's kernel.  Returns the kernels line's
+    entries of (b): each run's kernel against its plain version at rank
+    0's inputs, with rank 0's launches."""
+    import tempfile
+
+    import numpy as np
+
+    from volumerenderer_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launch.launch(mesh_rank, 4, tmp, DEV, BENCH_W, BENCH_H, device=DEV)
+        ranks = [json.loads(Path(tmp, f"rank{i}.json").read_text())
+                 for i in range(4)]
+        with np.load(Path(tmp, "images.npz")) as f:
+            images = dict(f)
+    seconds = time.perf_counter() - t0
+    checks = {}
+    for label, ref in (("POINT exact", "POINT exact"),
+                       ("RAY discrete exact", "RAY discrete exact"),
+                       ("RAY light_sharded_radiance", "RAY frame 1")):
+        got, want = images[label], refs[ref].numpy()
+        checks[label] = dict(
+            max_abs_err=float(np.abs(got - want).max()),
+            ok=bool(np.allclose(got, want, rtol=SHARDED_RTOL,
+                                atol=SHARDED_ATOL)
+                    and np.isfinite(got).all() and got.max() > 0))
+    emit("mesh", part="b", world=4, mesh=[2, 2], ranks=ranks,
+         against_single_device=checks, rtol=SHARDED_RTOL, atol=SHARDED_ATOL,
+         seconds=seconds)
+    for rk in ranks:
+        for label, key, _, _ in MESH_RANK_KERNELS:
+            require_launches(f"rank {rk['rank']} {label}",
+                             rk[label]["launches"], key)
+    bad = [k for k, v in checks.items() if not v["ok"]]
+    if bad:
+        raise AssertionError(f"mesh (2, 2): {bad} differ from the single "
+                             f"device beyond rtol {SHARDED_RTOL:g}, atol "
+                             f"{SHARDED_ATOL:g}: {checks}")
+    return [dict(name=f"{name} mesh (2,2)", route="cuda",
+                 source=f"volumerenderer_tpu_torch/csrc/{source}",
+                 replaces=REPLACES[key],
+                 launches=ranks[0][label]["launches"][key],
+                 **ranks[0]["kernels"][label])
+            for label, key, name, source in MESH_RANK_KERNELS]
+
+
+def phase_mesh():
+    """The mesh phase: (a) a world of one, (b) a (2, 2) world on this card,
+    (c) the dry run on 4 ranks.  Returns (a)'s and (b)'s kernels line
+    entries."""
+    from volumerenderer_tpu_torch.parallel import dryrun_multichip
+
+    t0 = time.perf_counter()
+    refs, entries = phase_mesh_one()
+    entries += phase_mesh_ranks(refs)
+    t1 = time.perf_counter()
+    dryrun_multichip(4, device=DEV)
+    emit("mesh", part="c", dryrun_ranks=4,
+         seconds=time.perf_counter() - t1,
+         phase_seconds=time.perf_counter() - t0)
+    return entries
+
+
 def main() -> int:
     if not (PKG / "__init__.py").is_file():
         print(f"chip_smoke: {PKG} not found; run from a checkout of the "
@@ -2661,6 +3004,7 @@ def main() -> int:
     option_runs = phase_options()
     phase_density()
     phase_aux()
+    mesh_entries = phase_mesh()
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
 
@@ -2704,6 +3048,7 @@ def main() -> int:
             name=name, route="cuda",
             source=f"volumerenderer_tpu_torch/csrc/{route_file}",
             replaces=REPLACES[key], launches=launches, library_ms=None, **v))
+    kernels.extend(mesh_entries)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -264,6 +264,7 @@ def test_import_port_leaves_jax_out():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = ("import sys, volumerenderer_tpu_torch, "
             "volumerenderer_tpu_torch.convert, "
+            "volumerenderer_tpu_torch.parallel, "
             "volumerenderer_tpu_torch.utils.ssim; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'volumerenderer_tpu')))")

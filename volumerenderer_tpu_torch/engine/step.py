@@ -128,12 +128,21 @@ def render_steps_cached(grid: DenseGrid, params: RenderParams,
         if fc == 1:
             accum_c = torch.zeros_like(accum_c)
         accum_c = accumulate(accum_c, frame_c, fc)
-    fc_end = m + n_frames
+    return expand_compact_batch(state, accum_c, view, m + n_frames), lights
+
+
+def expand_compact_batch(state: RenderState, accum_c: torch.Tensor,
+                         view, fc_end: int) -> RenderState:
+    """The image state after frames ``state.frame_count + 1`` .. ``fc_end``
+    accumulated in compact space: hit rays take their lane's ``accum_c``,
+    and a miss pixel's average over the batch's all-zero frames is its old
+    value scaled by m / fc_end."""
+    m = state.frame_count
     factor = 0.0 if m == 0 else float(np.float32(m) / np.float32(fc_end))
     expanded = color_mod.expand_compact_colors(accum_c, view)
     hit = (view.inv_map < view.src.shape[0])[: view.n_rays]
-    new_flat = torch.where(hit, expanded, accum_flat * factor)
-    return RenderState(new_flat.reshape(state.accum.shape), fc_end), lights
+    new_flat = torch.where(hit, expanded, state.accum.reshape(-1) * factor)
+    return RenderState(new_flat.reshape(state.accum.shape), fc_end)
 
 
 def bake_path_view_step(grid: DenseGrid, params: RenderParams, *,

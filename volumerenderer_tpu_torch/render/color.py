@@ -600,14 +600,18 @@ def shade_view_compact(grid, view: CompactView, params, lights: LightArray,
 
 def shade_view(grid, view, params, lights: LightArray,
                algorithm: Algorithm, config: StaticConfig,
-               frame: int = 0) -> torch.Tensor:
+               frame: int = 0, normalize: bool = True) -> torch.Tensor:
     """Shade a CompactView or a ViewCache with one frame's lights:
-    (rows, W) radiance."""
+    (rows, W) radiance.  ``normalize=False`` returns the raw radiance sums,
+    before the division by lightCount and the clamp (light-axis sharding
+    sums the partials of every rank first)."""
     out = _ray_radiance(view, params, lights, algorithm, config, frame)
     if isinstance(view, ViewCache):
         colors = torch.sum(out, dim=-1)[: view.n_rays]
     else:
         colors = expand_compact_colors(out, view)
+    if not normalize:
+        return colors.reshape(view.rows, config.width)
     denom = torch.clamp(lights.count[frame], min=1).to(torch.float32)
     return torch.clamp(colors / denom, 0.0, 1.0).reshape(view.rows,
                                                           config.width)
@@ -616,10 +620,12 @@ def shade_view(grid, view, params, lights: LightArray,
 def render_frame(grid: DenseGrid, params: RenderParams, lights: LightArray,
                  algorithm: Algorithm, config: StaticConfig, max_steps: int,
                  row_start: int = 0, num_rows: int | None = None,
-                 frame: int = 0, *, gather_samples: int = 0) -> torch.Tensor:
+                 frame: int = 0, *, gather_samples: int = 0,
+                 normalize: bool = True) -> torch.Tensor:
     """One uncached frame: the full march of every ray (``build_view``,
     top-k to ``gather_samples`` when given) shaded with frame ``frame`` of
-    ``lights``; (rows, W) radiance."""
+    ``lights``; (rows, W) radiance (raw sums with ``normalize=False``)."""
     view = build_view(grid, params, config, max_steps, row_start, num_rows,
                       gather_samples=gather_samples)
-    return shade_view(grid, view, params, lights, algorithm, config, frame)
+    return shade_view(grid, view, params, lights, algorithm, config, frame,
+                      normalize=normalize)
