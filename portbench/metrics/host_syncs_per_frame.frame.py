@@ -1,0 +1,9 @@
+"""Runtime calls that wait for the card (stream, device and event
+synchronizations and blocking copies, ``devtrace.SYNC_CALLS``) per frame of
+the traced converging window."""
+
+
+def read(ctx):
+    if ctx.kind != "converge":
+        return None
+    return ctx.summary.syncs / ctx.frames
