@@ -1367,30 +1367,30 @@ def path_renderer(**config):
 
 
 def path_frame_split(r, frame_count: int):
-    """One cached frame of ``r``'s session timed stage by stage with CUDA
-    events (render.path.PathTrace marks): ms per stage label."""
+    """One cached frame of ``r``'s session split by its spans
+    (utils.profiling: "path.replay", then "path.compact" and "path.walk"
+    a segment), in order: [[span, host ms], ...].  Each stage ends in a
+    host read of the card, so its host time follows the card's."""
     import torch
 
     from volumerenderer_tpu_torch.render import path
+    from volumerenderer_tpu_torch.utils import profiling
 
     p_eff, light_step, steps = r._path_effective(r._max_steps)
-    events = [("start", torch.cuda.Event(enable_timing=True))]
-
-    def mark(label):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append((label, ev))
-
     torch.cuda.synchronize()
-    events[0][1].record()
-    path.render_frame(
-        r.grid, p_eff, frame_count, r.config, steps,
-        shadow_lut_radius=r._shadow_lut_radius(), cache=r._path_view,
-        march_cell=r._path_cell(p_eff.ray_marching_step_size),
-        light_step=light_step, trace=path.PathTrace(mark=mark))
-    torch.cuda.synchronize()
-    return {label: events[i][1].elapsed_time(ev)
-            for i, (label, ev) in enumerate(events[1:])}
+    profiling.drain()
+    profiling.record(True)
+    try:
+        path.render_frame(
+            r.grid, p_eff, frame_count, r.config, steps,
+            shadow_lut_radius=r._shadow_lut_radius(), cache=r._path_view,
+            march_cell=r._path_cell(p_eff.ray_marching_step_size),
+            light_step=light_step)
+        torch.cuda.synchronize()
+    finally:
+        profiling.record(False)
+    spans = sorted(profiling.drain()["spans"], key=lambda s: s.start_ns)
+    return [[s.name, (s.end_ns - s.start_ns) * 1e-6] for s in spans]
 
 
 def phase_path(label: str, config: dict, attrs: dict, frames: int = 4,
@@ -2360,6 +2360,7 @@ def phase_options_bench():
     from volumerenderer_tpu_torch.ops.kernels import gather_lanes as gl
     from volumerenderer_tpu_torch.ops.kernels import gather_segments as gs
     from volumerenderer_tpu_torch.ops.kernels import gather_vpu as gv
+    from volumerenderer_tpu_torch.utils import profiling
 
     images, entries = {}, []
     for label, algo_name, cfg in OPTION_RUNS:
@@ -2367,7 +2368,10 @@ def phase_options_bench():
         torch.cuda.reset_peak_memory_stats()
         r = bench_renderer("exact", vt.Algorithm[algo_name],
                            interpolation="trilinear", **cfg)
+        build_reads = profiling.totals().get(("sync", "color.build"), 0)
         r.step(8)  # the view build and one batch
+        build_reads = (profiling.totals().get(("sync", "color.build"), 0)
+                       - build_reads)
         gl.launches = 0
         for counts in (gs.launches, gv.launches):
             for k in counts:
@@ -2393,7 +2397,7 @@ def phase_options_bench():
             identity = bool(torch.equal(
                 v.src[:v.n_rays].to(torch.int64),
                 torch.arange(v.n_rays, device=v.src.device)))
-            if v.caps or v.host_syncs or not identity:
+            if v.caps or build_reads or not identity:
                 raise AssertionError(f"bench trilinear {label}: not the "
                                      "identity-ordered device build")
         if n == 0:

@@ -1,0 +1,11 @@
+"""Self time of the program's "path.walk" spans (each scatter segment's
+chunked walk) per frame of the traced PATH window."""
+
+import spans
+
+
+def read(ctx):
+    w = spans.of(ctx)
+    if w is None or ctx.kind != "converge" or ctx.algorithm != "PATH":
+        return None
+    return w.self_s("path.walk") * 1e3 / ctx.frames

@@ -35,11 +35,19 @@ import volumerenderer_tpu_torch as vt
 from volumerenderer_tpu_torch import convert
 from volumerenderer_tpu_torch.engine.step import band_from_planes
 from volumerenderer_tpu_torch.render import color as tcolor
+from volumerenderer_tpu_torch.utils import profiling
 
 ALGOS = [JAlgorithm.POINT, JAlgorithm.SPHERE, JAlgorithm.RAY, JAlgorithm.BEAM]
 FRAME_ATOL = {JAlgorithm.POINT: 5e-5, JAlgorithm.SPHERE: 5e-5,
               JAlgorithm.RAY: 2e-5, JAlgorithm.BEAM: 1e-3}
 GS = 24  # below the golden scene's widest caps (64), above many rays' need
+
+
+def syncs_since(before: dict, site: str) -> int:
+    """The port's "sync" counts at ``site`` since ``profiling.totals()``
+    read ``before``."""
+    key = ("sync", site)
+    return profiling.totals().get(key, 0) - before.get(key, 0)
 
 
 def golden_pair(algorithm, mode="host", gather_samples=0, **config):
@@ -93,11 +101,13 @@ def test_host_view_matches_jax(mode, gather_samples):
     rj, rt = golden_pair(JAlgorithm.POINT, mode, gather_samples)
     steps = rj._max_steps
     assert not rt._device_build_ok(min(steps, rt._occupied_clip()[1]))
-    vj, vt_ = rj._current_view(steps), rt._current_view(rt._max_steps)
+    vj = rj._current_view(steps)
+    before = profiling.totals()
+    vt_ = rt._current_view(rt._max_steps)
     assert isinstance(vj, jcolor.CompactView)
     assert len(vt_.bands) >= 3
     assert rt.view_exact == bool(rj.view_exact) == (gather_samples == 0)
-    assert vt_.host_syncs == 1
+    assert syncs_since(before, "color.build") == 1
     assert_views_match(vt_, vj)
     if gather_samples:
         assert all(b.wx.shape[0] <= GS for b in vt_.bands)
@@ -133,10 +143,11 @@ def test_host_build_matches_device_build(algorithm):
                          ("slots", dict(compact_view=False))):
         r = vt.Renderer(grid, port_config(dataclasses.replace(c, **fields)),
                         params, algorithm=vt.Algorithm[algorithm.name])
+        before = profiling.totals()
         r.step(3)
         assert r.view_exact
         if name == "host":
-            assert r._view.caps and r._view.host_syncs == 1
+            assert r._view.caps and syncs_since(before, "color.build") == 1
         images[name] = r.image()
     assert images["device"].max() > 0
     for name in ("host", "slots"):

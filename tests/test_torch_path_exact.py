@@ -19,6 +19,7 @@ from volumerenderer_tpu_torch.engine.params import Fidelity
 from volumerenderer_tpu_torch.grid.dense import from_dense
 from volumerenderer_tpu_torch.render import path
 from volumerenderer_tpu_torch.render.color import required_march_steps
+from volumerenderer_tpu_torch.utils import profiling
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -271,16 +272,28 @@ def test_corrected_differs_from_reference():
 
 
 def test_trace_counts_host_reads_and_marks_stages():
+    """A frame's spans, in order: "path.replay", then per scatter segment
+    "path.compact" and "path.walk"; one "sync" count a segment at
+    "path.compact", and the walk's early-exit reads at "path.walk"."""
     g, params, config = bigger_scene(path_compact_min=64)
-    labels = []
-    trace = path.PathTrace(mark=labels.append)
-    render(g, params, config, trace=trace)
-    assert labels[0] == "replay"
-    segs = [lab for lab in labels if lab.endswith(":count")]
-    assert 1 <= len(segs) <= config.max_path_segments - 1
-    assert labels[1:4] == ["seg2:count", "seg2:sort", "seg2:walk"]
+    profiling.drain()
+    profiling.record(True)
+    try:
+        render(g, params, config)
+    finally:
+        profiling.record(False)
+    got = profiling.drain()
+    names = [s.name for s in sorted(got["spans"], key=lambda s: s.start_ns)]
+    assert names[0] == "path.replay"
+    segs = names.count("path.compact")
+    assert 1 <= segs <= config.max_path_segments - 1
+    assert names[1:3] == ["path.compact", "path.walk"]
+    reads = {}
+    for c in got["counts"]:
+        reads[c.site] = reads.get(c.site, 0) + c.n
+    assert reads["path.compact"] == segs
     # One alive count per segment walked plus the early-exit reads.
-    assert trace.host_reads >= len(segs)
+    assert reads["path.compact"] + reads.get("path.walk", 0) >= segs
 
 
 def test_renderer_counts_path_host_reads_and_budget():

@@ -14,6 +14,7 @@ from volumerenderer_tpu.render.color import required_march_steps
 from volumerenderer_tpu_torch import convert
 from volumerenderer_tpu_torch.engine.params import StaticConfig
 from volumerenderer_tpu_torch.render import photon as tphoton
+from volumerenderer_tpu_torch.utils import profiling
 
 
 def port_config(config):
@@ -67,7 +68,9 @@ def test_generate_lights_frame_batch(golden):
     fcs = np.arange(5, 13, dtype=np.int32)
     lab = jax.jit(jax.vmap(
         lambda f: jphoton.generate_lights(g, p, f, c, max_steps=ms)))(fcs)
+    walk = ("sync", "photon.walk")
+    before = profiling.totals().get(walk, 0)
     lt = tphoton.generate_lights(tg, tp, fcs.tolist(), tc, max_steps=ms)
-    assert lt.walk_syncs > 0
+    assert profiling.totals()[walk] > before
     for i, fc in enumerate(fcs):
         _check(jax.tree.map(lambda x: x[i], lab), lt, i, fc)

@@ -35,6 +35,7 @@ from volumerenderer_tpu_torch import convert
 from volumerenderer_tpu_torch.engine.state import accumulate
 from volumerenderer_tpu_torch.ops import march as tmarch
 from volumerenderer_tpu_torch.render import color as tcolor
+from volumerenderer_tpu_torch.utils import profiling
 
 ALGOS = [JAlgorithm.POINT, JAlgorithm.SPHERE, JAlgorithm.RAY, JAlgorithm.BEAM]
 # Frame tolerances (absolute, image max ~1), as the nearest-fetch frames are
@@ -160,10 +161,11 @@ def test_trilinear_compact_view_matches_jax(build):
         vj = build_compact_view_device_step(
             rj.grid, rj.params, box, config=rj.config, steps=steps,
             march_cell=8, band_lanes=1024)
+        before = profiling.totals().get(("sync", "color.build"), 0)
         vt_ = tcolor.build_compact_view_device(
             rt.grid, rt.params, rt.config, steps, clip_box=box,
             march_cell=8, band_lanes=1024)
-        assert vt_.host_syncs == 0
+        assert profiling.totals().get(("sync", "color.build"), 0) == before
         np.testing.assert_array_equal(vt_.src.numpy(), np.arange(64 * 64))
         assert all(b.wx.shape[0] >= steps for b in vt_.bands)
     else:

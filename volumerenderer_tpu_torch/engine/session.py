@@ -31,10 +31,15 @@ PATH (``_path_step``) bakes its camera segment into a PathView keyed like
 the view plus the light, and renders uncached when the view exceeds
 ``path_cache_budget_bytes``; a coarse drag skips the re-bake, and the
 settled camera re-bakes blocking.
+
+Each ``step`` call is a span, "session.step", the root of its tick, and
+each ``image``/``image_u8`` call one named "session.image"
+(utils.profiling); ``host_syncs`` adds the "sync" counts made inside them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import warnings
@@ -51,6 +56,7 @@ from ..render.color import (
     occupancy_counts_rays, occupancy_gated, required_march_steps,
 )
 from ..render.path import padded_rays, view_bytes
+from ..utils import profiling
 from .params import (
     Algorithm, Fidelity, RenderParams, StaticConfig, check_algorithm,
 )
@@ -132,7 +138,9 @@ class Renderer:
         self.first_frame_uncached = False
         self._ttff_done = False
         self._budget_checked = False
-        # Host reads (device -> host syncs) made by frames and builds.
+        # Syncs (utils.profiling's "sync" counts: host reads and copies
+        # from pageable host memory) made by this session's step and
+        # image calls.
         self.host_syncs = 0
 
     # ---- volume ----
@@ -186,7 +194,7 @@ class Renderer:
         if self._budget_checked:
             return
         self._budget_checked = True
-        self.host_syncs += 1
+        profiling.count("sync", "session.warn")
         if bool(self.lights.truncated.any()):
             warnings.warn(
                 "photon event budget saturated: some photon scattered "
@@ -222,8 +230,9 @@ class Renderer:
         copied there once per grid) + step bound: marches clip to the
         occupied region with bit-identical results."""
         if getattr(self, "_occ_cache_id", None) != self._grid_token:
-            self.host_syncs += 1
             box = occupied_bbox(self.grid)
+            if box is not None:
+                profiling.count("sync", "session.clip", 2)  # the copies
             self._occ_cache = box
             self._occ_clip = (None if box is None else tuple(
                 torch.as_tensor(c, device=self.device) for c in box))
@@ -268,12 +277,10 @@ class Renderer:
 
     def _build_compact_view_device(self, clip_box, steps: int):
         self.view_exact = True
-        view = build_compact_view_device(
+        return build_compact_view_device(
             self.grid, self.params, self.config, steps, clip_box=clip_box,
             march_cell=self._march_cell(),
         )
-        self.host_syncs += view.host_syncs
-        return view
 
     def _current_view(self, max_steps: int):
         """The baked view for the current camera/volume/march params,
@@ -297,6 +304,7 @@ class Renderer:
             self._view_key = key
         return self._view
 
+    @profiling.spanned("color.build")
     def _build_compact_view(self, clip_box, steps: int) -> CompactView:
         """The host-banded compact build:
 
@@ -320,13 +328,12 @@ class Renderer:
         cell = self._march_cell()
         o_i, d_i = camera_rays_index(self.grid, self.params, cfg)
         if occupancy_gated(cfg, cell):
+            profiling.count("sync", "color.build")
             counts = occupancy_counts_rays(
                 self.grid, self.params, cfg, steps, o_i, d_i,
                 clip_box=clip_box, march_cell=cell).cpu().numpy()
-            syncs = 1
         else:
             counts = np.full(n_rays, steps, np.int32)
-            syncs = 0
         order = np.argsort(-counts, kind="stable").astype(np.int32)
         hit_n = max(1, int((counts > 0).sum()))
         lanes_n = -(-hit_n // TILE_L) * TILE_L
@@ -342,6 +349,7 @@ class Renderer:
         inv[order_l[:hit_n]] = np.arange(hit_n, dtype=np.int32)
         # Both copies to the device before the march, while the stream is
         # idle after the counts' read.
+        profiling.count("sync", "color.build.upload", 2)
         src = torch.as_tensor(order_l, device=self.device)
         inv_map = torch.as_tensor(inv, device=self.device)
         lane_rays = src.to(torch.int64)
@@ -363,10 +371,9 @@ class Renderer:
             bands.append(band_from_planes(*planes))
             caps.append(kb)
             startl += size
-        self.host_syncs += syncs
         view = CompactView(
             bands=tuple(bands), inv_map=inv_map, src=src, n_rays=n_rays,
-            rows=H, host_syncs=syncs, caps=tuple(caps))
+            rows=H, caps=tuple(caps))
         if cfg.gather_stride > 1:
             view = decimate_view(view, int(cfg.gather_stride),
                                  fold=cfg.gather_fold)
@@ -456,7 +463,6 @@ class Renderer:
             self.grid, self.params, self.config, st["steps"],
             clip_box=st["clip"], row_start=i * (H // K), num_rows=H // K,
             march_cell=self._march_cell(), band_lanes=band)
-        self.host_syncs += view.host_syncs
         st["views"].append(view)
         if len(st["views"]) < K:
             self._motion_steps(n, max_steps)
@@ -469,15 +475,24 @@ class Renderer:
 
     # ---- frame loop ----
 
+    @contextlib.contextmanager
+    def _call(self, name: str):
+        """A public call: a span named ``name``, its syncs added to
+        ``host_syncs``."""
+        syncs = profiling.total("sync")
+        with profiling.span(name):
+            yield
+        self.host_syncs += profiling.total("sync") - syncs
+
     def step(self, n: int = 1) -> RenderState:
-        state = self._step(n)
-        if self.lights is not None:
-            self._maybe_warn_light_truncation()
+        with self._call("session.step"):
+            state = self._step(n)
+            if self.lights is not None:
+                self._maybe_warn_light_truncation()
         return state
 
     def _took(self, lights, k: int) -> None:
-        """Book a step's lights: its walk's host reads, the last frame's."""
-        self.host_syncs += lights.walk_syncs
+        """Book a step's lights: the last frame's."""
         self.lights = lights.frame(k - 1)
 
     # ---- PATH ----
@@ -559,16 +574,12 @@ class Renderer:
             self._path_view_key = key
         return self._path_view
 
-    def _took_path(self, out) -> None:
-        self.state, self.lights, reads = out
-        self.host_syncs += reads
-
     def _path_uncached(self, params, max_steps, lut_r, cell, light_step):
-        self._took_path(render_step(
+        self.state, self.lights = render_step(
             self.grid, params, self.state, algorithm=Algorithm.PATH,
             config=self.config, max_steps=max_steps,
             shadow_lut_radius=lut_r, march_cell=cell,
-            light_step=light_step))
+            light_step=light_step)
 
     def _path_step(self, n: int, max_steps: int) -> RenderState:
         """PATH frames: over the baked PathView when it fits
@@ -612,11 +623,11 @@ class Renderer:
                       shadow_lut_radius=lut_r, march_cell=cell,
                       light_step=light_step)
             if k == 1:
-                self._took_path(render_path_step_cached(
-                    self.grid, p_eff, self.state, cache, **kw))
+                self.state, self.lights = render_path_step_cached(
+                    self.grid, p_eff, self.state, cache, **kw)
             else:
-                self._took_path(render_path_steps_cached(
-                    self.grid, p_eff, self.state, cache, n_frames=k, **kw))
+                self.state, self.lights = render_path_steps_cached(
+                    self.grid, p_eff, self.state, cache, n_frames=k, **kw)
             remaining -= k
         return self.state
 
@@ -685,7 +696,11 @@ class Renderer:
     # ---- presentation ----
 
     def image(self) -> np.ndarray:
-        return self.state.rgb().cpu().numpy()
+        with self._call("session.image"):
+            profiling.count("sync", "session.image")
+            return self.state.rgb().cpu().numpy()
 
     def image_u8(self) -> np.ndarray:
-        return self.state.rgb_u8().cpu().numpy()
+        with self._call("session.image"):
+            profiling.count("sync", "session.image")
+            return self.state.rgb_u8().cpu().numpy()

@@ -3,9 +3,8 @@ uncached step, which marches every ray (and shades it in slots layout, or
 path-traces it for PATH), and the steps over a baked view or PathView.
 
 A frame is: frameCount++, clear on frame 1, photon-walk light generation
-(none for PATH), shading, progressive accumulation.  The PATH steps return
-(new_state, lights, host_reads): the lights are empty and the host reads
-are the frame's alive counts and early exits (render.path.PathTrace).
+(none for PATH), shading, progressive accumulation.  Every step returns
+(new_state, lights); PATH's lights are empty.
 """
 
 from __future__ import annotations
@@ -33,7 +32,7 @@ def render_step(grid: DenseGrid, params: RenderParams, state: RenderState,
                 shadow_lut_radius: int = 0, march_cell: int = 1,
                 light_step=None):
     """One uncached frame (march + shade, render_frame): returns
-    (new_state, lights), and for PATH (new_state, lights, host_reads).
+    (new_state, lights).
 
     ``gather_samples``: top-k compaction of the march (0 keeps every
     sample; PATH ignores it).  ``shadow_lut_radius``, ``march_cell`` and
@@ -41,13 +40,12 @@ def render_step(grid: DenseGrid, params: RenderParams, state: RenderState,
     fc = state.frame_count + 1
     accum = torch.zeros_like(state.accum) if fc == 1 else state.accum
     if algorithm is Algorithm.PATH:
-        trace = path_mod.PathTrace()
         frame = path_mod.render_frame(
             grid, params, fc, config, max_steps,
             shadow_lut_radius=shadow_lut_radius, march_cell=march_cell,
-            light_step=light_step, trace=trace)
+            light_step=light_step)
         return (RenderState(accumulate(accum, frame, fc, _u8(config)), fc),
-                photon.empty_lights(config, grid.device), trace.host_reads)
+                photon.empty_lights(config, grid.device))
     lights = photon.generate_lights(grid, params, [fc], config,
                                     max_steps=max_steps)
     frame = color_mod.render_frame(grid, params, lights, algorithm, config,
@@ -162,16 +160,15 @@ def render_path_step_cached(grid: DenseGrid, params: RenderParams,
                             light_step=None):
     """One PATH frame over a baked PathView: the camera segment replays
     the view, then the scatter segments.  Identical to render_step.
-    Returns (new_state, lights, host_reads)."""
+    Returns (new_state, lights)."""
     fc = state.frame_count + 1
     accum = torch.zeros_like(state.accum) if fc == 1 else state.accum
-    trace = path_mod.PathTrace()
     frame = path_mod.render_frame(
         grid, params, fc, config, max_steps,
         shadow_lut_radius=shadow_lut_radius, cache=cache,
-        march_cell=march_cell, light_step=light_step, trace=trace)
+        march_cell=march_cell, light_step=light_step)
     return (RenderState(accumulate(accum, frame, fc, _u8(config)), fc),
-            photon.empty_lights(config, grid.device), trace.host_reads)
+            photon.empty_lights(config, grid.device))
 
 
 def render_path_steps_cached(grid: DenseGrid, params: RenderParams,
@@ -182,18 +179,17 @@ def render_path_steps_cached(grid: DenseGrid, params: RenderParams,
     """``n_frames`` PATH frames over a baked PathView with their scatter
     segments walked together (render.path.render_frames), accumulated
     frame by frame in order: identical to n_frames single steps.
-    Returns (new_state, lights, host_reads)."""
+    Returns (new_state, lights)."""
     m = state.frame_count
     fcs = [m + 1 + i for i in range(n_frames)]
-    trace = path_mod.PathTrace()
     frames = path_mod.render_frames(
         grid, params, fcs, config, max_steps, cache,
         shadow_lut_radius=shadow_lut_radius, march_cell=march_cell,
-        light_step=light_step, trace=trace)
+        light_step=light_step)
     accum = state.accum
     for i, fc in enumerate(fcs):
         if fc == 1:
             accum = torch.zeros_like(accum)
         accum = accumulate(accum, frames[i], fc, _u8(config))
     return (RenderState(accum, m + n_frames),
-            photon.empty_lights(config, grid.device), trace.host_reads)
+            photon.empty_lights(config, grid.device))

@@ -21,6 +21,7 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import transforms
 
 BRICK = 8
@@ -135,12 +136,14 @@ def occupied_bbox(grid: DenseGrid):
     """Index-space AABB of the occupied bricks (host-side): (min corner,
     max corner exclusive) as f32 numpy arrays, or None for an empty volume.
     Marches clipped to it are bit-identical to full-bbox marches."""
+    profiling.count("sync", "grid.occupied")
     occ = grid.brick_occ.cpu().numpy()
     if not occ.any():
         return None
     idx = np.argwhere(occ)
     lo = idx.min(axis=0) * BRICK
     hi = (idx.max(axis=0) + 1) * BRICK
+    profiling.count("sync", "grid.occupied")
     bmin = grid.bbox_min.cpu().numpy()
     return (bmin + lo).astype(np.float32), (bmin + hi).astype(np.float32)
 

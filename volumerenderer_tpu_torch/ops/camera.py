@@ -11,6 +11,7 @@ import math
 
 import torch
 
+from ..utils import profiling
 from .march import f32
 from .rng import norm3
 
@@ -33,6 +34,8 @@ def camera_rays(
     frame.  ``look_rotation``: optional (3, 3) rotation of the directions."""
     if num_rows is None:
         num_rows = height
+    # The field of view and the camera position are copied to ``device``.
+    profiling.count("sync", "camera.rays", 2)
     fov = torch.as_tensor(fov_deg, dtype=torch.float32, device=device)
     scale = torch.tan(fov * f32(0.5 * math.pi / 180.0))
     aspect = f32(width / height)

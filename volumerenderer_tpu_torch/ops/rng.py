@@ -15,6 +15,8 @@ import math
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 _MASK = 0xFFFFFFFF
 
 # f32 constant the shader uses: 1.0 / 4294967295.0 evaluated in float32.
@@ -27,8 +29,11 @@ _HM = 0x45D9F3B
 
 
 def as_u32(x, device=None) -> torch.Tensor:
-    """Any integer tensor/array/int -> int64 tensor holding uint32 values."""
+    """Any integer tensor/array/int -> int64 tensor holding uint32 values
+    (on ``device``, when given, a copy from the host)."""
     if not isinstance(x, torch.Tensor):
+        if device is not None:
+            profiling.count("sync", "rng.upload")
         x = torch.as_tensor(np.asarray(x, np.int64), device=device)
     return x.to(torch.int64) & _MASK
 

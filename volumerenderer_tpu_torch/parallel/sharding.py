@@ -350,8 +350,6 @@ class MeshRenderer:
         self.algorithm = Algorithm(algorithm)
         _, rows = row_band(mesh, config)
         self.state = RenderState.create(rows, config.width, self.device)
-        # Host reads of the occupied clip (the Renderer's counter).
-        self.host_syncs = 0
         self._view = None
         self._view_key = None
         self._path_view = None

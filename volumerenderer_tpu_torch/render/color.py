@@ -34,6 +34,11 @@ Views over the device budget are built band by band from the host's sort
     ray's full march straight into row-major (R, C) planes (a ViewCache),
     shaded by the slot kernels into (R, C) weighted per-sample sums, summed
     over samples here.
+
+Spans (utils.profiling): "color.march" (``build_view``: the uncached
+frame's and the slots view's full march), "color.build" (each device
+build, and each host-banded build in engine.session), "color.merge" (the
+settle's merge).
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from ..ops import march as march_ops
 from ..ops.kernels.gather_lanes import TILE_L, lane_need_of
 from ..ops.march import sqrt
 from ..ops.rng import norm3
+from ..utils import profiling
 from .photon import LightArray
 
 
@@ -84,7 +90,6 @@ class CompactView:
     src: torch.Tensor  # (Rc_total,) i32: image ray of each lane (pad -> 0)
     n_rays: int
     rows: int
-    host_syncs: int = 0  # host reads the build made
     caps: tuple = ()  # each band's march cap K_b (the host-banded build)
 
 
@@ -102,6 +107,7 @@ def camera_rays_index(grid: DenseGrid, params: RenderParams,
     H, W = config.height, config.width
     rows = H if num_rows is None else num_rows
     dev = grid.device
+    profiling.count("sync", "color.rays")  # the rotation's copy to ``dev``
     o_w, d_w = camera.camera_rays(
         W, H, params.fov, params.camera_pos,
         look_rotation=torch.as_tensor(params.camera_rotation, device=dev),
@@ -240,10 +246,15 @@ def _clip_tensors(clip_box, dev):
     arrays or tensors)."""
     if clip_box is None:
         return None
+    copies = sum(1 for c in clip_box if not torch.is_tensor(c)
+                 or c.device.type != torch.device(dev).type)
+    if copies:
+        profiling.count("sync", "color.clip", copies)
     return tuple(torch.as_tensor(c, dtype=torch.float32, device=dev)
                  for c in clip_box)
 
 
+@profiling.spanned("color.march")
 def build_view(grid: DenseGrid, params: RenderParams, config: StaticConfig,
                max_steps: int, row_start: int = 0,
                num_rows: int | None = None, clip_box=None,
@@ -267,6 +278,7 @@ def build_view(grid: DenseGrid, params: RenderParams, config: StaticConfig,
                      rows=rows)
 
 
+@profiling.spanned("color.build")
 def build_compact_view_device(
     grid: DenseGrid,
     params: RenderParams,
@@ -315,7 +327,7 @@ def build_compact_view_device(
             starts, [steps] * len(starts), band_lanes, clip_box=clip_box,
             march_cell=march_cell, skip_empty=False,
             inv_map=inv_map, src=order_p.to(torch.int32), n_rays=n_rays,
-            rows=rows, host_syncs=0)
+            rows=rows)
         return _maybe_decimate(view, config)
     if order != "occupancy":
         raise ValueError(f"unknown lane order: {order!r}")
@@ -339,6 +351,7 @@ def build_compact_view_device(
     src = torch.where(lane_live, order_p, 0).to(torch.int32)
     if use_occ:
         counts_sorted = torch.where(lane_live, counts[order_p], 0)
+        profiling.count("sync", "color.build")
         caps = torch.stack(
             [counts_sorted[s:s + band_lanes].max() for s in starts]
         ).tolist()  # the one host read of the build
@@ -348,7 +361,7 @@ def build_compact_view_device(
         grid, params, config, steps, o_i, d_i, order_p, lane_live, starts,
         caps, band_lanes, clip_box=clip_box, march_cell=march_cell,
         skip_empty=use_occ, inv_map=inv_map, src=src, n_rays=n_rays,
-        rows=rows, host_syncs=int(use_occ))
+        rows=rows)
     return _maybe_decimate(view, config)
 
 
@@ -488,9 +501,10 @@ def decimate_view(view: CompactView, stride: int,
     return CompactView(
         bands=tuple(fold_fn(b, stride) for b in view.bands),
         inv_map=view.inv_map, src=view.src, n_rays=view.n_rays,
-        rows=view.rows, host_syncs=view.host_syncs, caps=view.caps)
+        rows=view.rows, caps=view.caps)
 
 
+@profiling.spanned("color.merge")
 def merge_row_views(views) -> CompactView:
     """Merge CompactViews built over consecutive, disjoint row ranges (in
     image order) into one full-image view: bands concatenate in lane order,
@@ -511,8 +525,7 @@ def merge_row_views(views) -> CompactView:
     return CompactView(
         bands=tuple(bands), inv_map=torch.cat(inv_parts),
         src=torch.cat(src_parts), n_rays=ray0,
-        rows=sum(int(v.rows) for v in views),
-        host_syncs=sum(v.host_syncs for v in views))
+        rows=sum(int(v.rows) for v in views))
 
 
 def _expanded_lights(lights: LightArray, params, algorithm: Algorithm,

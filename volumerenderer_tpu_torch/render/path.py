@@ -55,6 +55,7 @@ from ..grid.dense import DenseGrid
 from ..ops import intersect, rng
 from ..ops.march import ENTRY_EPS, _select_cells, f32, f32mul, ray_positions
 from ..ops.march import sqrt, t_grid
+from ..utils import profiling
 from .color import camera_rays_index
 
 # Bytes of one (tile, S) int64 temporary of the camera segment's bake and
@@ -110,20 +111,6 @@ def _tiling(n_rays: int, S: int, tile_bytes: int):
     return m * tile, tile
 
 
-class PathTrace:
-    """What a PATH frame reports besides its image: the host reads it made
-    (per segment the alive count, per sub-block the early exit) and, when
-    ``mark`` is given, a call ``mark(label)`` at each stage boundary."""
-
-    def __init__(self, mark=None):
-        self.host_reads = 0
-        self._mark = mark
-
-    def mark(self, label: str) -> None:
-        if self._mark is not None:
-            self._mark(label)
-
-
 def _row_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over the last axis as a halving tree of elementwise adds (zero
     padded to a power of two): the same order for any number of rows."""
@@ -144,6 +131,7 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
 
 
 def _light_local(grid: DenseGrid, params: RenderParams) -> torch.Tensor:
+    profiling.count("sync", "path.upload")
     return grid.world_to_index(torch.as_tensor(
         params.light_source_world_pos, dtype=torch.float32,
         device=grid.device))
@@ -170,6 +158,7 @@ def _shadow_lut(grid: DenseGrid, light_local, radius: int):
     """Densities of the (2R+1)^3 voxels around the light, read at the
     voxel centres: valid for any probe within R of the light."""
     base = torch.floor(light_local).to(torch.int64) - radius
+    profiling.count("sync", "path.upload")
     offs = torch.as_tensor(_lut_offsets(radius), device=light_local.device)
     vals = grid.sample_nearest((base + offs).to(torch.float32) + 0.5)
     return base, vals
@@ -263,6 +252,7 @@ def _make_lut(grid, params, config, shadow_lut_radius):
 def _pad_rays(o_i, d_i, n_pad: int):
     pad = n_pad - o_i.shape[0]
     o_i = F.pad(o_i, (0, 0, 0, pad))
+    profiling.count("sync", "path.upload")
     d_pad = torch.tensor([0.0, 0.0, 1.0], device=d_i.device).expand(pad, 3)
     return o_i, torch.cat([d_i, d_pad], dim=0)
 
@@ -402,7 +392,7 @@ def _seg1_frame_rank(params, S, o, d, tmin, n_occ, rank_k, rank_prefix,
 
 def _walk_chunk(grid, params, config, lut, S, light_local, o, d, seed0,
                 seed_draws, tmax, alive, *, march_cell=1, light_step=None,
-                subblock=SUBBLOCK, trace=None):
+                subblock=SUBBLOCK):
     """One scatter segment for a chunk of rays: t0 = step (the reference
     resets currentT on scatter), march to the ray's original tmax.
     Returns (d_color, origin', dir', seed_draws', alive').
@@ -502,8 +492,7 @@ def _walk_chunk(grid, params, config, lut, S, light_local, o, d, seed0,
             done = ~alive | found | ((j + 1) * CB >= ncell_sel)
         else:
             done = ~alive | found | (t[:, -1] >= stop_t)
-        if trace is not None:
-            trace.host_reads += 1
+        profiling.count("sync", "path.walk")
         if bool(done.all()):
             break
 
@@ -578,7 +567,7 @@ def _compact_indices(alive: torch.Tensor, count: int) -> torch.Tensor:
 
 def _scatter_segments(grid, params, config, lut, S, light_local, state,
                       spec: _SeedSpec, *, march_cell=1, light_step=None,
-                      subblock=SUBBLOCK, trace: PathTrace):
+                      subblock=SUBBLOCK):
     """Segments 2..max_path_segments.  Returns the (n,) colors.
 
     At most ``path_compact_min`` rays walk full width, every ray every
@@ -593,22 +582,22 @@ def _scatter_segments(grid, params, config, lut, S, light_local, state,
     n = o.shape[0]
     n_frames = spec.frame_counts.shape[0]
     kw = dict(march_cell=march_cell, light_step=light_step,
-              subblock=subblock, trace=trace)
+              subblock=subblock)
     all_rows = torch.arange(n, device=o.device)
 
     if n <= config.path_compact_min:
         seed0 = _chunk_seeds(all_rows, spec)
-        for k in range(2, config.max_path_segments + 1):
-            trace.host_reads += 1
-            any_alive = bool(alive.any())
-            trace.mark(f"seg{k}:count")
+        for _ in range(2, config.max_path_segments + 1):
+            with profiling.span("path.compact"):
+                profiling.count("sync", "path.compact")
+                any_alive = bool(alive.any())
             if not any_alive:
                 break
-            dc, o, d, seed_draws, alive = _walk_chunk(
-                grid, params, config, lut, S, light_local, o, d, seed0,
-                seed_draws, tmax, alive, **kw)
-            color = color + dc
-            trace.mark(f"seg{k}:walk")
+            with profiling.span("path.walk"):
+                dc, o, d, seed_draws, alive = _walk_chunk(
+                    grid, params, config, lut, S, light_local, o, d, seed0,
+                    seed_draws, tmax, alive, **kw)
+                color = color + dc
         return color
 
     W = max(32, config.path_chunk * n_frames)
@@ -617,34 +606,35 @@ def _scatter_segments(grid, params, config, lut, S, light_local, state,
         key_mode = ("cells" if spec.n_pad_frame <= SORT_CELLS_MAX_RAYS
                     else "span")
     orig = torch.where(alive, all_rows, -1).to(torch.int32)
-    for k in range(2, config.max_path_segments + 1):
-        alive = orig >= 0
-        trace.host_reads += 1
-        count = int(alive.sum())
-        trace.mark(f"seg{k}:count")
-        if count == 0:
-            break
-        if config.path_sort_chunks:
-            idx = _sorted_compact(grid, params, config, S, o, d, tmax, alive,
-                                  march_cell=march_cell, key_mode=key_mode,
-                                  subblock=subblock)[:count]
-        else:
-            idx = _compact_indices(alive, count)
-        o, d, seed_draws, tmax, orig = (
-            o[idx], d[idx], seed_draws[idx], tmax[idx], orig[idx])
-        trace.mark(f"seg{k}:sort")
-        out = []
-        for a in range(0, count, W):
-            og = orig[a:a + W]
-            dc, o2, d2, sd2, al2 = _walk_chunk(
-                grid, params, config, lut, S, light_local, o[a:a + W],
-                d[a:a + W], _chunk_seeds(og, spec), seed_draws[a:a + W],
-                tmax[a:a + W], torch.ones_like(og, dtype=torch.bool), **kw)
-            og64 = og.to(torch.int64)
-            color[og64] = color[og64] + dc
-            out.append((o2, d2, sd2, torch.where(al2, og, -1)))
-        o, d, seed_draws, orig = (torch.cat(c) for c in zip(*out))
-        trace.mark(f"seg{k}:walk")
+    for _ in range(2, config.max_path_segments + 1):
+        with profiling.span("path.compact"):
+            alive = orig >= 0
+            profiling.count("sync", "path.compact")
+            count = int(alive.sum())
+            if count == 0:
+                break
+            if config.path_sort_chunks:
+                idx = _sorted_compact(grid, params, config, S, o, d, tmax,
+                                      alive, march_cell=march_cell,
+                                      key_mode=key_mode,
+                                      subblock=subblock)[:count]
+            else:
+                idx = _compact_indices(alive, count)
+            o, d, seed_draws, tmax, orig = (
+                o[idx], d[idx], seed_draws[idx], tmax[idx], orig[idx])
+        with profiling.span("path.walk"):
+            out = []
+            for a in range(0, count, W):
+                og = orig[a:a + W]
+                dc, o2, d2, sd2, al2 = _walk_chunk(
+                    grid, params, config, lut, S, light_local, o[a:a + W],
+                    d[a:a + W], _chunk_seeds(og, spec), seed_draws[a:a + W],
+                    tmax[a:a + W], torch.ones_like(og, dtype=torch.bool),
+                    **kw)
+                og64 = og.to(torch.int64)
+                color[og64] = color[og64] + dc
+                out.append((o2, d2, sd2, torch.where(al2, og, -1)))
+            o, d, seed_draws, orig = (torch.cat(c) for c in zip(*out))
     return color
 
 
@@ -720,17 +710,19 @@ def render_frame(
     *,
     subblock: int = SUBBLOCK,
     tile_bytes: int = TILE_BYTES,
-    trace: PathTrace | None = None,
 ) -> torch.Tensor:
     """One PATH frame: (num_rows, W) radiance in [0, 1].
 
     ``shadow_lut_radius``: the exact shadow-probe LUT (radius >=
     ceil(step); 0 disables).  ``cache``: a PathView from ``bake_path_view``
     of the same rows; the camera segment then replays it instead of
-    marching.  Identical results either way.  ``trace``: receives the host
-    reads and the stage marks (labels "replay", then per segment k
-    "seg{k}:count", "seg{k}:sort" (compacted walk only), "seg{k}:walk")."""
-    trace = trace if trace is not None else PathTrace()
+    marching.  Identical results either way.
+
+    Spans (utils.profiling): "path.replay" (the camera segment, replayed
+    or marched), then per scatter segment "path.compact" (the alive count,
+    and the sort or compaction) and "path.walk"; the host reads count as
+    syncs at "path.compact" (one a segment) and "path.walk" (one a
+    sub-block of a chunk)."""
     W = config.width
     rows = config.height if num_rows is None else num_rows
     n_rays = rows * W
@@ -739,38 +731,41 @@ def render_frame(
     lut = _make_lut(grid, params, config, shadow_lut_radius)
     light_local = _light_local(grid, params)
     dev = grid.device
+    profiling.count("sync", "path.upload")
     fcs = torch.tensor([int(frame_count)], dtype=torch.int64, device=dev)
 
-    if cache is None:
-        o_i, d_i = camera_rays_index(grid, params, config, row_start,
-                                     num_rows)
-        n_pad, tile = _tiling(n_rays, S, tile_bytes)
-        o_i, d_i = _pad_rays(o_i, d_i, n_pad)
-        real = torch.arange(n_pad, device=dev) < n_rays
-        spec = _SeedSpec(W, rows, row_start, fcs, n_pad)
-        seeds = _chunk_seeds(torch.arange(n_pad, device=dev), spec)
-        parts = []
-        for a in range(0, n_pad, tile):
-            b = a + tile
-            tmin, tmax, live, site_rank, n_occ, prefix = _seg1_planes(
-                grid, params, config, lut, S, o_i[a:b], d_i[a:b], real[a:b],
-                light_step=light_step)
-            parts.append((*_seg1_frame(params, o_i[a:b], d_i[a:b], tmin,
-                                       live, site_rank, n_occ, prefix,
-                                       seeds[a:b]), tmax))
-        color, o2, d2, sd2, al2, tmax = (torch.cat(c) for c in zip(*parts))
-    else:
-        n_pad = cache.o_i.shape[0]
-        spec = _SeedSpec(W, rows, row_start, fcs, n_pad)
-        color, o2, d2, sd2, al2 = _replay(params, S, cache, spec, tile_bytes)
-        tmax = cache.tmax
-    trace.mark("replay")
+    with profiling.span("path.replay"):
+        if cache is None:
+            o_i, d_i = camera_rays_index(grid, params, config, row_start,
+                                         num_rows)
+            n_pad, tile = _tiling(n_rays, S, tile_bytes)
+            o_i, d_i = _pad_rays(o_i, d_i, n_pad)
+            real = torch.arange(n_pad, device=dev) < n_rays
+            spec = _SeedSpec(W, rows, row_start, fcs, n_pad)
+            seeds = _chunk_seeds(torch.arange(n_pad, device=dev), spec)
+            parts = []
+            for a in range(0, n_pad, tile):
+                b = a + tile
+                tmin, tmax, live, site_rank, n_occ, prefix = _seg1_planes(
+                    grid, params, config, lut, S, o_i[a:b], d_i[a:b],
+                    real[a:b], light_step=light_step)
+                parts.append((*_seg1_frame(params, o_i[a:b], d_i[a:b], tmin,
+                                           live, site_rank, n_occ, prefix,
+                                           seeds[a:b]), tmax))
+            color, o2, d2, sd2, al2, tmax = (torch.cat(c)
+                                             for c in zip(*parts))
+        else:
+            n_pad = cache.o_i.shape[0]
+            spec = _SeedSpec(W, rows, row_start, fcs, n_pad)
+            color, o2, d2, sd2, al2 = _replay(params, S, cache, spec,
+                                              tile_bytes)
+            tmax = cache.tmax
 
     if config.max_path_segments > 1:
         color = _scatter_segments(
             grid, params, config, lut, S, light_local,
             (color, o2, d2, sd2, tmax, al2), spec, march_cell=march_cell,
-            light_step=light_step, subblock=subblock, trace=trace)
+            light_step=light_step, subblock=subblock)
     return _finish(params, color, n_rays, rows, W)
 
 
@@ -808,13 +803,12 @@ def render_frames(
     *,
     subblock: int = SUBBLOCK,
     tile_bytes: int = TILE_BYTES,
-    trace: PathTrace | None = None,
 ) -> torch.Tensor:
     """``len(frame_counts)`` cached PATH frames with their scatter segments
     walked together: (F, rows, W).  Frames are independent seed streams,
     so their scatter states concatenate; the chunk width scales by F.
-    Per-frame results are identical to ``render_frame``."""
-    trace = trace if trace is not None else PathTrace()
+    Per-frame results are identical to ``render_frame``; the spans and
+    counts are ``render_frame``'s, with one "path.replay" for the batch."""
     W = config.width
     rows = config.height if num_rows is None else num_rows
     n_rays = rows * W
@@ -823,18 +817,18 @@ def render_frames(
     lut = _make_lut(grid, params, config, shadow_lut_radius)
     light_local = _light_local(grid, params)
     n_pad = cache.o_i.shape[0]
+    profiling.count("sync", "path.upload")
     fcs = torch.as_tensor([int(fc) for fc in frame_counts],
                           dtype=torch.int64, device=grid.device)
     Fn = fcs.shape[0]
     spec = _SeedSpec(W, rows, row_start, fcs, n_pad)
-    per_frame = [_replay(params, S, cache, spec, tile_bytes, frame=i)
-                 for i in range(Fn)]
-    color, o2, d2, sd2, al2 = (torch.cat(c) for c in zip(*per_frame))
-    trace.mark("replay")
+    with profiling.span("path.replay"):
+        per_frame = [_replay(params, S, cache, spec, tile_bytes, frame=i)
+                     for i in range(Fn)]
+        color, o2, d2, sd2, al2 = (torch.cat(c) for c in zip(*per_frame))
     if config.max_path_segments > 1:
         color = _scatter_segments(
             grid, params, config, lut, S, light_local,
             (color, o2, d2, sd2, cache.tmax.repeat(Fn), al2), spec,
-            march_cell=march_cell, light_step=light_step, subblock=subblock,
-            trace=trace)
+            march_cell=march_cell, light_step=light_step, subblock=subblock)
     return _finish(params, color.reshape(Fn, n_pad), n_rays, rows, W)

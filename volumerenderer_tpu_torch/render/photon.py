@@ -15,8 +15,9 @@ vectorized call); the first accepted scatter of each photon is found with
 an argmax.  Photons of several frames walk together: the photon axis
 carries one frame count per photon, so a batch of F frames is one walk of
 F x 16 photons.  The window loop runs in Python and stops when no photon
-is alive (one host read per window) or at the reference package's
-iteration bound.
+is alive (one host read per window, counted as a sync at "photon.walk")
+or at the reference package's iteration bound.  Each call is a span,
+"photon.walk".
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from ..engine.params import RenderParams, StaticConfig
 from ..grid.dense import DenseGrid
 from ..ops import intersect, rng
 from ..ops.march import ENTRY_EPS, f32mul
+from ..utils import profiling
 
 
 @dataclass
@@ -43,7 +45,6 @@ class LightArray:
     # (F,) bool: a photon scattered with no free event slot, so the
     # max_events_per_photon budget truncated the light population.
     truncated: torch.Tensor
-    walk_syncs: int = 0  # host reads the window loop made
 
     def frame(self, i: int) -> "LightArray":
         """The lights of frame ``i`` of the batch, keeping a unit axis."""
@@ -52,6 +53,7 @@ class LightArray:
                           self.valid[s], self.count[s], self.truncated[s])
 
 
+@profiling.spanned("photon.walk")
 def generate_lights(
     grid: DenseGrid,
     params: RenderParams,
@@ -117,9 +119,8 @@ def generate_lights(
     ones = torch.ones((P, 1), dtype=f32, device=dev)
     max_iters = (K + 1) + max(1, config.max_photon_steps // Wn)
     it = 0
-    syncs = 0
     while it < max_iters:
-        syncs += 1
+        profiling.count("sync", "photon.walk")
         if not bool(alive.any()):
             break
         it += 1
@@ -221,7 +222,6 @@ def generate_lights(
         valid=torch.arange(L, device=dev)[None, :] < count[:, None],
         count=count.to(torch.int32),
         truncated=dropped.reshape(F, P1).any(dim=-1),
-        walk_syncs=syncs,
     )
 
 
