@@ -7,9 +7,9 @@ Phases, each printed as one JSON line; any failure exits nonzero:
 
   1. device    the card's name, power limit and compute capability;
   2. build     nvcc builds csrc/gather_lanes.cu, csrc/gather_segments.cu,
-               csrc/gather_vpu.cu and csrc/gather_many.cu from this
-               checkout, all at once; ptxas registers, spills and shared
-               memory per kernel template;
+               csrc/gather_vpu.cu, csrc/gather_many.cu and
+               csrc/march_planes.cu from this checkout, all at once; ptxas
+               registers, spills and shared memory per kernel template;
   3. kernel    the point gather kernel against its plain PyTorch version at
                synthetic shapes (Cp 144, Rc 524288, L in {1, 37, 1000,
                2048}, point/sphere, exact/paired, plus edge cases; the
@@ -48,11 +48,22 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                edge cases above, the point kernel over a range from 3 of
                1,093 lights and over 2,048 slots (the paired point and VRL
                kernels also against the exact plain version);
+     march     the march kernel (csrc/march_planes.cu) against its plain
+               version at the bench config's rays: the coarse drag frame
+               (step 12, 16 samples, slots and lanes layouts) and the
+               slots view's build (step 1, the occupied clip box):
+               positions bit for bit, the weights' largest relative error
+               against the plain version on CPU copies of SLOT_RAYS rays
+               and on the card (rtol 1e-6, or S x 2^-24 where more), and
+               the samples weighted on one side only; kernel and plain ms,
+               the plain version's launches, the byte bound;
  11. uncached  the bench config with compact_view=False (the slots
                ViewCache) for POINT exact and paired, RAY discrete exact
                and paired, RAY analytic exact and paired, BEAM discrete
                exact and BEAM analytic closed paired: step(8) warm-up, step(8)
-               timed, slot-kernel launches per frame, peak memory, the
+               timed, slot-kernel launches per frame, the march kernel's
+               launches in the view build (one) and in the timed frames
+               (none), peak memory, the
                image against a cached session at the same frame (rtol
                1e-5, atol 1e-7); and one uncached step (march + shade) per
                frame for POINT exact;
@@ -65,7 +76,8 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                alone);
  13. drag      the interactive viewer's setup at the bench config (RAY,
                motion_mode="coarse", first_frame_uncached, settle_chunks
-               4): the first frame (warm), coarse drag frames, the settle
+               4): the first frame (warm), coarse drag frames (each
+               launching one march kernel), the settle
                ticks, the merged view against a blocking rebuild (rtol
                2e-6), truncated drag frames (motion_cap 16), each drag
                path's view build alone, and
@@ -198,7 +210,12 @@ whole shape a frame launches: the widest band or the whole ViewCache;
 phase 20's entries, named "... trilinear", at the slices they were held
 against plain on; phase 23's, named "... mesh", with the launches of the
 world of one's runs, at the mesh view's shapes, and "... mesh (2,2)", with
-rank 0's launches in the (2, 2) world, at rank 0's band and light shard);
+rank 0's launches in the (2, 2) world, at rank 0's band and light shard;
+the march kernel's entries, march_planes[drag] with the launches of phase
+13's coarse drag frames, one a frame, and march_planes[slots_build] with
+those of phase 11's first view build, at the march phase's shapes (the
+lanes layout, which no run of the bench config launches, is in the march
+phase's line alone));
 the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
 repository, it exits nonzero and prints no result.
@@ -433,7 +450,8 @@ def phase_device():
 def phase_build():
     from volumerenderer_tpu_torch.ops.kernels import _build
 
-    names = ("gather_lanes", "gather_segments", "gather_vpu", "gather_many")
+    names = ("gather_lanes", "gather_segments", "gather_vpu", "gather_many",
+             "march_planes")
     t0 = time.perf_counter()
     _build.build(names)  # one nvcc per source, started together
     dt = time.perf_counter() - t0
@@ -1000,6 +1018,97 @@ def phase_slot_kernel():
     torch.cuda.empty_cache()
 
 
+def device_launches(fn) -> int:
+    """Device activities (kernels, copies, fills) one call of ``fn``
+    puts on the card, from a torch.profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def phase_march():
+    """The march kernel against its plain version at the main path's
+    shapes (module docstring, ``march``); returns each shape's fields by
+    its name."""
+    import torch
+
+    import volumerenderer_tpu_torch as vt
+    from volumerenderer_tpu_torch.ops.kernels import march_planes as mp
+    from volumerenderer_tpu_torch.render import color
+
+    r = bench_renderer("exact", vt.Algorithm.RAY, compact_view=False)
+    n0 = mp.launches["march"]
+    shapes = {}
+    for name, step, clip, lanes in (("drag", 12.0, False, False),
+                                    ("drag_lanes", 12.0, False, True),
+                                    ("slots_build", 1.0, True, False)):
+        params = r.params.replace(ray_marching_step_size=step)
+        o_i, d_i = color.camera_rays_index(r.grid, params, r.config)
+        S = color.required_march_steps(r.grid, step, r.config.max_march_steps)
+        box = None
+        if clip:
+            box, view_steps = r._occupied_clip()
+            S = min(S, view_steps)
+        kw = dict(ray_max_distance=params.ray_max_distance, step_size=step,
+                  absorption=params.absorption_coefficient, max_steps=S,
+                  clip_box=box, lanes=lanes)
+        N = o_i.shape[0]
+        got = mp.march_planes(r.grid, o_i, d_i, **kw)  # warm: the allocation
+        got, ms = cuda_timed(lambda: mp.march_planes(r.grid, o_i, d_i, **kw),
+                             reps=20)
+        plain = lambda: mp.march_planes_reference(
+            r.grid, o_i, d_i, tile=r.config.build_tile, **kw)
+        want = plain()  # warm: its temporaries and kernels' first loads
+        want, plain_ms = cuda_timed(plain, reps=2)
+        launches = device_launches(plain)
+        # The plain version on CPU copies of SLOT_RAYS rays mid-image (the
+        # transmittance product in the kernel's order), and on the card
+        # (torch.cumprod's scan there): positions bit for bit, weights.
+        a = N // 2 - SLOT_RAYS // 2
+        cut = slice(a, a + SLOT_RAYS)
+        host = mp.march_planes(
+            r.grid.to("cpu"), o_i[cut].cpu(), d_i[cut].cpu(), **dict(
+                kw, clip_box=None if box is None
+                else tuple(c.cpu() for c in box)))
+        mine = (got[:, :, cut] if lanes else got[:, cut]).cpu()
+        same = bool(torch.equal(got[:3], want[:3])
+                    and torch.equal(mine[:3], host[:3]))
+        w, wp, wh = got[3], want[3], host[3]
+        err = rel_err(mine[3][(mine[3] != 0) & (wh != 0)],
+                      wh[(mine[3] != 0) & (wh != 0)])
+        err_card = rel_err(w[(w != 0) & (wp != 0)], wp[(w != 0) & (wp != 0)])
+        flips = int(((w != 0) != (wp != 0)).sum()
+                    + ((mine[3] != 0) != (wh != 0)).sum())
+        nbytes = 16.0 * N * S + 24.0 * N + 4.0 * r.grid.voxels.numel()
+        bound_ms, by = bound(0.0, nbytes)
+        fields = dict(
+            rays=N, samples=S, clip=clip, layout="lanes" if lanes else "slots",
+            ms=ms, plain_ms=plain_ms, plain_launches=launches,
+            bound_ms=bound_ms, bound_by=by, pct_of_bound=100.0 * bound_ms / ms,
+            positions_equal=same, weighted=int((wp != 0).sum()),
+            max_rel_err=err, max_rel_err_card_plain=err_card,
+            weighted_one_side=flips)
+        emit("march", shape=name, **fields)
+        shapes[name] = fields
+        # 1e-6, or half an ulp of drift a factor of the S-sample product
+        # (expf's last bit; cumprod's association on the card).
+        tol = max(1e-6, S * 2.0**-24)
+        if not same or not max(err, err_card) <= tol:
+            raise AssertionError(f"march kernel {name} vs plain: positions "
+                                 f"equal {same}, weight rel err "
+                                 f"{max(err, err_card):.3g} > {tol:.3g}")
+        del got, want, w, wp
+        torch.cuda.empty_cache()
+    mp.launches["march"] = n0  # comparison launches are not main-path ones
+    return shapes
+
+
 def slot_tol(kind: str, kw: dict) -> float:
     """A slot kernel's tolerance against its plain version in the same
     tier: the plain versions sum in the kernels' order, so the kernel
@@ -1032,6 +1141,7 @@ def phase_uncached(algo_name, tier, mode, seg_tier, rule):
 
     import volumerenderer_tpu_torch as vt
     from volumerenderer_tpu_torch.ops.kernels import gather_vpu as gv
+    from volumerenderer_tpu_torch.ops.kernels import march_planes as mp
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1039,18 +1149,22 @@ def phase_uncached(algo_name, tier, mode, seg_tier, rule):
               beam_quadrature_rule=rule)
     r = bench_renderer(tier, vt.Algorithm[algo_name], compact_view=False,
                        **kw)
+    mp.launches["march"] = 0
     t0 = time.perf_counter()
     r.step(8)  # the ViewCache build + one batch
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    build_marches = mp.launches["march"]
     frames = 8
     for k in gv.launches:
         gv.launches[k] = 0
+    mp.launches["march"] = 0
     t0 = time.perf_counter()
     r.step(frames)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(gv.launches)
+    frame_marches = mp.launches["march"]
     peak = torch.cuda.max_memory_allocated()
     key, _ = slot_kind(algo_name, mode)
     label = run_label(algo_name, tier, mode, seg_tier, rule)
@@ -1060,6 +1174,10 @@ def phase_uncached(algo_name, tier, mode, seg_tier, rule):
     if launches[key] == 0:
         raise AssertionError(f"uncached {label}: the slots path launched no "
                              f"{key} kernel")
+    if build_marches != 1 or frame_marches:
+        raise AssertionError(f"uncached {label}: the slots view's build "
+                             f"launched {build_marches} march kernels (1 "
+                             f"wanted), its cached frames {frame_marches}")
     view_bytes = sum(t.numel() * 4 for t in (r._view.wx, r._view.wy,
                                              r._view.wz, r._view.weight))
     # The same frames through the compact view.
@@ -1073,6 +1191,7 @@ def phase_uncached(algo_name, tier, mode, seg_tier, rule):
          mrays_per_s=BENCH_W * BENCH_H * frames / dt / 1e6, warmup_s=warm_s,
          launches=launches,
          launches_per_frame={k: v / frames for k, v in launches.items()},
+         build_march_launches=build_marches,
          max_memory_allocated=peak, view_shape=list(r._view.wx.shape),
          view_bytes=view_bytes,
          live_samples=int((r._view.weight != 0).sum()),
@@ -1085,7 +1204,7 @@ def phase_uncached(algo_name, tier, mode, seg_tier, rule):
     del rc
     if (algo_name, tier) == ("POINT", "exact"):
         phase_uncached_step(r)
-    return key, launches[key], r
+    return key, launches[key], build_marches, r
 
 
 def phase_uncached_step(r):
@@ -1190,13 +1309,15 @@ def phase_slot_shapes(r, algo_name, tier, mode, seg_tier, rule):
 
 def phase_drag():
     """The interactive viewer's setup at the bench config (RAY discrete):
-    first frame, coarse drag, settle, truncated drag, decimation."""
+    first frame, coarse drag, settle, truncated drag, decimation; returns
+    the march kernel's launches over the coarse drag frames."""
     import numpy as np
     import torch
 
     import volumerenderer_tpu_torch as vt
     from volumerenderer_tpu_torch.ops.kernels import gather_segments as gs
     from volumerenderer_tpu_torch.ops.kernels import gather_vpu as gv
+    from volumerenderer_tpu_torch.ops.kernels import march_planes as mp
     from volumerenderer_tpu_torch.render.color import (
         build_compact_view_device, build_view, required_march_steps,
     )
@@ -1210,7 +1331,7 @@ def phase_drag():
         return (time.perf_counter() - t0) * 1e3
 
     def zero_counts():
-        for d in (gv.launches, gs.launches):
+        for d in (gv.launches, gs.launches, mp.launches):
             for k in d:
                 d[k] = 0
 
@@ -1230,24 +1351,32 @@ def phase_drag():
             and first_launches["segment_discrete"] == 1):
         raise AssertionError("drag: the first frame did not take the "
                              "uncached step")
+    fields["first_frame_march_launches"] = mp.launches["march"]
     fields["first_cached_frame_ms"] = timed(lambda: r.step(1))  # view build
     zero_counts()
-    drag_ms = []
+    drag_ms, drag_marches = [], []
     for pos in positions:
         r.set(camera_pos=pos)
+        n0 = mp.launches["march"]
         drag_ms.append(timed(lambda: r.step(1)))
+        drag_marches.append(mp.launches["march"] - n0)
     coarse_launches = dict(gv.launches)
     if r.view_exact or coarse_launches["segment_discrete"] != len(positions):
         raise AssertionError("drag: coarse frames did not take the "
                              "uncached coarse step")
+    if drag_marches != [1] * len(positions):
+        raise AssertionError(f"drag: coarse frames launched {drag_marches} "
+                             "march kernels, one each wanted")
     fields["coarse_drag_ms"] = drag_ms
+    fields["coarse_march_launches"] = drag_marches
     zero_counts()
     tick_ms = [timed(lambda: r.step(1)) for _ in range(4)]
     if not r.view_exact or len(r._view.bands) < 4:
         raise AssertionError("drag: the settle did not land a merged view")
     fields["settle_tick_ms"] = tick_ms
     fields["settle_launches"] = {"slots": dict(gv.launches),
-                                 "lanes": dict(gs.launches)}
+                                 "lanes": dict(gs.launches),
+                                 "march": mp.launches["march"]}
     fields["peak_memory_coarse_and_settle"] = torch.cuda.max_memory_allocated()
     r.refresh()
     r.step(1)
@@ -1310,6 +1439,7 @@ def phase_drag():
         del rd
     emit("drag", **fields)
     torch.cuda.empty_cache()
+    return sum(drag_marches)
 
 
 def phase_goldens():
@@ -2988,12 +3118,15 @@ def main() -> int:
                              phase_segment_shapes(r, *run)))
         del r
     phase_slot_kernel()
+    march_shapes = phase_march()
+    march_launches = {}
     slot_runs = []
     for run in UNCACHED_RUNS:
-        key, launches, r = phase_uncached(*run)
+        key, launches, build_marches, r = phase_uncached(*run)
+        march_launches.setdefault("slots_build", build_marches)
         slot_runs.append((run, key, launches, phase_slot_shapes(r, *run)))
         del r
-    phase_drag()
+    march_launches["drag"] = phase_drag()
     for run in PATH_RUNS:
         phase_path(*run)
     phase_path_drag()
@@ -3052,6 +3185,11 @@ def main() -> int:
             name=name, route="cuda",
             source=f"volumerenderer_tpu_torch/csrc/{route_file}",
             replaces=REPLACES[key], launches=launches, library_ms=None, **v))
+    for name, launches in march_launches.items():
+        kernels.append(dict(
+            name=f"march_planes[{name}]", route="cuda",
+            source="volumerenderer_tpu_torch/csrc/march_planes.cu",
+            replaces=None, launches=launches, **march_shapes[name]))
     kernels.extend(mesh_entries)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -34,6 +34,7 @@ from volumerenderer_tpu.render import photon as jphoton
 import volumerenderer_tpu_torch as vt
 from volumerenderer_tpu_torch import convert
 from volumerenderer_tpu_torch.engine.step import band_from_planes
+from volumerenderer_tpu_torch.ops.kernels import march_planes as tmarch
 from volumerenderer_tpu_torch.render import color as tcolor
 from volumerenderer_tpu_torch.utils import profiling
 
@@ -204,7 +205,7 @@ def test_top_k_order_matches_jax():
     for k in (1, 5, 12, 40):
         wj, idx = jax.lax.top_k(jnp.asarray(w), k)
         tj = np.take_along_axis(t, np.asarray(idx), axis=1)
-        wt, tt = tcolor.top_k_samples(torch.as_tensor(w), torch.as_tensor(t),
+        wt, tt = tmarch.top_k_samples(torch.as_tensor(w), torch.as_tensor(t),
                                       k)
         np.testing.assert_array_equal(wt.numpy(), np.asarray(wj))
         np.testing.assert_array_equal(tt.numpy(), tj)

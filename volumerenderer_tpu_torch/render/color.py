@@ -35,10 +35,17 @@ Views over the device budget are built band by band from the host's sort
     shaded by the slot kernels into (R, C) weighted per-sample sums, summed
     over samples here.
 
+  the march kernel: on a CUDA device, a march with nearest sampling, no
+    brick gate and every sample kept (the uncached frame, the slots view,
+    cell-1 builds) is one launch of csrc/march_planes.cu from the clip to
+    the planes (the rule: ops.kernels.march_planes.plan); every other
+    march runs the plain march tile by tile (ops.kernels.march_planes).
+
 Spans (utils.profiling): "color.march" (``build_view``: the uncached
 frame's and the slots view's full march), "color.build" (each device
 build, and each host-banded build in engine.session), "color.merge" (the
-settle's merge).
+settle's merge).  Counts (kind "march"): "color.march.kernel" and
+"color.march.ops", one a ``_march_planes`` call by its route.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from ..engine.params import Algorithm, RenderParams, StaticConfig
 from ..grid.dense import DenseGrid
 from ..ops import camera, gather as gather_ops, lights as lights_ops
 from ..ops import march as march_ops
+from ..ops.kernels import march_planes as march_planes_ops
 from ..ops.kernels.gather_lanes import TILE_L, lane_need_of
 from ..ops.march import sqrt
 from ..ops.rng import norm3
@@ -125,11 +133,11 @@ def _tiles(n: int, tile: int):
 
 def occupancy_gated(config: StaticConfig, march_cell: int) -> bool:
     """Whether a build reads the brick occupancy: nearest sampling at a
-    coarse cell above 1.  Otherwise (trilinear, as in the reference
-    package, or cell 1) no occupancy count or cap is taken: every ray is
-    marched at the full step budget, and the occupancy order is the
-    identity."""
-    return config.interpolation == "nearest" and march_cell > 1
+    coarse cell above 1 (ops.kernels.march_planes.brick_gated).  Otherwise
+    (trilinear, as in the reference package, or cell 1) no occupancy count
+    or cap is taken: every ray is marched at the full step budget, and the
+    occupancy order is the identity."""
+    return march_planes_ops.brick_gated(config.interpolation, march_cell)
 
 
 def occupancy_counts_rays(grid, params, config, max_steps: int, o_i, d_i, *,
@@ -149,68 +157,29 @@ def occupancy_counts_rays(grid, params, config, max_steps: int, o_i, d_i, *,
     return out
 
 
-def top_k_samples(weight: torch.Tensor, t: torch.Tensor, k: int):
-    """Each row's ``k`` largest weights and the march distances that go
-    with them, (N, k) each, in the order of a stable descending sort:
-    equal weights keep ascending sample order, as ``jax.lax.top_k``."""
-    w, idx = torch.sort(weight, dim=-1, descending=True, stable=True)
-    idx = idx[:, :k]
-    return w[:, :k], torch.gather(t, -1, idx)
-
-
 def _march_planes(grid, params, config, max_steps: int, o_i, d_i, *,
                   clip_box, occupied_cap, march_cell: int, lanes: bool,
                   gather_samples: int = 0):
     """Bake the march for an explicit ray set: (4, C, N) lane-major planes
-    (``lanes``) or (4, N, C) row-major planes of (wx, wy, wz, w), written
-    tile by tile so that no transposed copy of the planes is made.  With
+    (``lanes``) or (4, N, C) row-major planes of (wx, wy, wz, w).  With
     ``gather_samples`` below the march's samples, C = ``gather_samples``
-    (``top_k_samples``)."""
-    n_rays = o_i.shape[0]
-    cap = occupied_cap if occupancy_gated(config, march_cell) else None
-    if cap is not None:
-        n_cells = -(-max_steps // march_cell)
-        kc = min(max(1, -(-min(cap, max_steps) // march_cell)), n_cells)
-        S = kc * march_cell
-    else:
-        S = max_steps
-    compact = bool(gather_samples) and gather_samples < S
-    C = gather_samples if compact else S
-    # Memory guard: march temporaries are ~40 B per (ray, sample).
-    tile_mem_bound = max(1024, ((3 << 29) // max(S * 40, 1)) // 1024 * 1024)
-    tile = max(1, min(config.build_tile, tile_mem_bound, n_rays))
-    dev = o_i.device
-    shape = (4, C, n_rays) if lanes else (4, n_rays, C)
-    planes = torch.empty(shape, dtype=torch.float32, device=dev)
-    mm = grid.map_mat
-    mv = grid.map_vec
-    for a, b in _tiles(n_rays, tile):
-        o, d = o_i[a:b], d_i[a:b]
-        m = march_ops.march(
-            grid, o, d,
-            ray_max_distance=params.ray_max_distance,
-            step_size=params.ray_marching_step_size,
-            absorption=params.absorption_coefficient,
-            max_steps=max_steps, interpolation=config.interpolation,
-            clip_box=clip_box, occupied_cap=cap, cell=march_cell,
-        )
-        w, t = m.weight, m.t
-        if compact:
-            w, t = top_k_samples(w, t, C)
-        ix = o[:, 0:1] + d[:, 0:1] * t
-        iy = o[:, 1:2] + d[:, 1:2] * t
-        iz = o[:, 2:3] + d[:, 2:3] * t
-        for i in range(3):
-            v = mm[i, 0] * ix + mm[i, 1] * iy + mm[i, 2] * iz + mv[i]
-            if lanes:
-                planes[i, :, a:b] = v.T
-            else:
-                planes[i, a:b] = v
-        if lanes:
-            planes[3, :, a:b] = w.T
-        else:
-            planes[3, a:b] = w
-    return planes
+    (ops.kernels.march_planes.top_k_samples).  Each call counts its route,
+    "color.march.kernel" or "color.march.ops" (kind "march")."""
+    march = dict(ray_max_distance=params.ray_max_distance,
+                 step_size=params.ray_marching_step_size,
+                 absorption=params.absorption_coefficient,
+                 max_steps=max_steps, lanes=lanes, clip_box=clip_box,
+                 tile=config.build_tile)
+    route = march_planes_ops.plan(config.interpolation, march_cell,
+                                  occupied_cap, gather_samples, max_steps)
+    if route.kernel and o_i.device.type == "cuda":
+        profiling.count("march", "color.march.kernel")
+        return march_planes_ops.march_planes(grid, o_i, d_i, **march)
+    profiling.count("march", "color.march.ops")
+    return march_planes_ops.march_planes_reference(
+        grid, o_i, d_i, **march, interpolation=config.interpolation,
+        occupied_cap=occupied_cap, cell=march_cell,
+        gather_samples=gather_samples)
 
 
 def build_view_rays(grid, params, config, max_steps: int, o_i, d_i, *,
