@@ -1930,6 +1930,28 @@ def check_image(what: str, r) -> None:
         raise AssertionError(f"asset {what}: image not finite or all zero")
 
 
+def load_split(path):
+    """``grid.load(path)`` with the program's recorder on: the grid and the
+    host ms of each of the load's spans ("grid.load", then the file's read,
+    the bricking and the upload)."""
+    import torch
+
+    import volumerenderer_tpu_torch as vt
+    from volumerenderer_tpu_torch.utils import profiling
+
+    profiling.drain()
+    profiling.record(True)
+    try:
+        g = vt.grid.load(str(path), device=DEV)
+        if DEV != "cpu":
+            torch.cuda.synchronize()
+    finally:
+        profiling.record(False)
+    return g, {s.name: (s.end_ns - s.start_ns) * 1e-6
+               for s in profiling.drain()["spans"]
+               if s.name.startswith("grid.load")}
+
+
 def phase_asset():
     """The bunny-class asset: files, the host-banded build at 1080p, every
     algorithm, rows 1 and 2 on its widest band, host against device build,
@@ -1966,7 +1988,7 @@ def phase_asset():
         g0, str(vdb), compression="blosc+mask"))
     _, write_nvdb_s = timed(lambda: vt.grid.save_nvdb(g0, str(nvdb),
                                                       codec="zip"))
-    g, read_vdb_s = timed(lambda: vt.grid.load(str(vdb), device=DEV))
+    (g, read_vdb_split_ms), read_vdb_s = timed(lambda: load_split(vdb))
     g_nvdb, read_nvdb_s = timed(lambda: vt.grid.load(str(nvdb), device=DEV))
     blob = vdbio_native.blob_from_dense(
         dense, ASSET_BBOX_MIN, g0.map_mat.cpu().numpy().astype(np.float64),
@@ -1980,6 +2002,7 @@ def phase_asset():
          vdb_bytes=vdb.stat().st_size, nvdb_bytes=nvdb.stat().st_size,
          blob_bytes=len(blob), write_vdb_s=write_vdb_s,
          write_nvdb_s=write_nvdb_s, read_vdb_s=read_vdb_s,
+         read_vdb_split_ms=read_vdb_split_ms,
          read_nvdb_s=read_nvdb_s, read_blob_s=read_blob_s,
          loaded_shape=list(g.voxels.shape), exact=same,
          native=vdbio_native.build_info)

@@ -13,7 +13,9 @@ JSON line:
     by site beside the trace's synchronizing runtime calls per frame, the
     share of the device-idle time that falls inside any span and inside each
     span name's own time (its spans less their child spans), host seconds
-    by span name, and the recorder buffer's peak entries;
+    by span name, the recorder buffer's peak entries, and the set-up's
+    volume load split by its spans (``grid.load`` and its children: the
+    file's read, the bricking, the upload), which end before the window;
   * ``off``: the same traced run with the recorder off (the program-span
     readers left out): the traced frame time, for the recorder's cost;
   * ``sites``: an untraced run whose window runs under
@@ -82,6 +84,17 @@ def _analyse(ctx, spans_mod) -> dict:
     return out
 
 
+def _load_split(drained, w0: float) -> dict:
+    """Host ms of the volume load's spans ("grid.load" and its children)
+    that end before the window opens at ``w0`` (seconds on the trace's
+    clock)."""
+    out = collections.Counter()
+    for s in drained["spans"]:
+        if s.name.startswith("grid.load") and s.end_ns * 1e-9 <= w0:
+            out[s.name] += (s.end_ns - s.start_ns) * 1e-6
+    return dict(sorted(out.items()))
+
+
 def run(cell: str, mode: str, seconds: float, seed: int) -> dict:
     import torch
 
@@ -106,6 +119,16 @@ def run(cell: str, mode: str, seconds: float, seed: int) -> dict:
             return None
         return types.SimpleNamespace(read=read)
 
+    spans_mod = None
+    if mode == "on":
+        import spans as spans_mod  # turns the program's recorder on
+
+        real_window_of = spans_mod.window_of
+
+        def window_of(drained, w0, w1):
+            report["setup_ms_by_span"] = _load_split(drained, w0)
+            return real_window_of(drained, w0, w1)
+        spans_mod.window_of = window_of
     real_driver = harness.drive.driver
     sites = collections.Counter()
     from volumerenderer_tpu_torch.utils import profiling
@@ -149,6 +172,8 @@ def run(cell: str, mode: str, seconds: float, seed: int) -> dict:
         harness.load_spec, warnings.showwarning = real_spec, real_show
         harness.load_metric = real_load
         harness.drive.driver = real_driver
+        if spans_mod is not None:
+            spans_mod.window_of = real_window_of
     if mode == "sites":
         n = report.pop("frames")
         c0, c1 = report.pop("sync_counts0"), report.pop("sync_counts1")

@@ -317,7 +317,8 @@ class Renderer:
         3. each band of sorted lanes marched at its own cap K_b (its first
            lane's count rounded up to 16 steps, at least one cell, at most
            ``steps``) and top-k to ``gather_samples`` below it, with as
-           many lanes as fit ``view_build_budget_bytes``.
+           many lanes as fit ``view_build_budget_bytes``;
+        4. one read of the lanes' live samples (``CompactView.live``).
 
         Lanes past the hit rays (misses, and ray 0 repeated on views
         narrower than TILE_L) are marched with the last band; ``inv_map``
@@ -347,12 +348,14 @@ class Renderer:
         self.view_exact = (not gs) or gs >= int(counts_l[0])
         inv = np.full(n_rays, lanes_n, np.int32)
         inv[order_l[:hit_n]] = np.arange(hit_n, dtype=np.int32)
-        # Both copies to the device before the march, while the stream is
-        # idle after the counts' read.
-        profiling.count("sync", "color.build.upload", 2)
-        src = torch.as_tensor(order_l, device=self.device)
-        inv_map = torch.as_tensor(inv, device=self.device)
+        # Both arrays in one copy to the device before the march, while the
+        # stream is idle after the counts' read.
+        profiling.count("sync", "color.build.upload")
+        both = torch.as_tensor(np.concatenate([order_l, inv]),
+                               device=self.device)
+        src, inv_map = both[:lanes_n], both[lanes_n:]
         lane_rays = src.to(torch.int64)
+        profiling.count("view", "color.build.host")
         bands, caps = [], []
         startl = 0
         while startl < lanes_n:
@@ -369,6 +372,7 @@ class Renderer:
                 gather_samples=gs if gs and gs < kb else 0,
                 clip_box=clip_box, occupied_cap=kb, march_cell=cell)
             bands.append(band_from_planes(*planes))
+            profiling.count("view", "color.build.band")
             caps.append(kb)
             startl += size
         view = CompactView(
@@ -377,6 +381,11 @@ class Renderer:
         if cfg.gather_stride > 1:
             view = decimate_view(view, int(cfg.gather_stride),
                                  fold=cfg.gather_fold)
+        # The samples the gather will read.  With the one copy above, the
+        # build still waits on the card three times: counts, copy, this.
+        profiling.count("sync", "color.build.live")
+        view.live = int(torch.stack([b.lane_need.sum()
+                                     for b in view.bands]).sum())
         return view
 
     # ---- interactive paths ----

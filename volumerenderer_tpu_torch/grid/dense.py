@@ -201,6 +201,15 @@ def from_dense(
     The map defaults to uniform ``voxel_size`` scaling plus
     ``translation``."""
     device = check_device(device, "from_dense")
+    return upload(bricked(values, bbox_min, voxel_size, translation,
+                          map_mat), device)
+
+
+def bricked(values: np.ndarray, bbox_min=(0, 0, 0), voxel_size: float = 1.0,
+            translation=(0.0, 0.0, 0.0),
+            map_mat: np.ndarray | None = None) -> dict:
+    """``from_dense``'s host half: every field of the DenseGrid as a numpy
+    array (the voxels padded to bricks, the brick tables, the map)."""
     values = np.ascontiguousarray(values, np.float32)
     if values.ndim != 3:
         raise ValueError(f"expected 3-D density array, got shape {values.shape}")
@@ -211,15 +220,15 @@ def from_dense(
     if map_mat is None:
         map_mat = np.eye(3, dtype=np.float32) * np.float32(voxel_size)
     map_mat = np.asarray(map_mat, np.float32)
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
-    return DenseGrid(
-        voxels=t(padded),
-        bbox_min=t(bbox_min),
-        bbox_max=t(bbox_max),
-        map_mat=t(map_mat),
-        map_inv=t(np.linalg.inv(map_mat).astype(np.float32)),
-        map_vec=t(np.asarray(translation, np.float32)),
-        brick_occ=t(occ),
-        brick_max=t(brick_max),
-        brick_occ_dil=t(dil),
-    )
+    return dict(
+        voxels=padded, bbox_min=bbox_min, bbox_max=bbox_max,
+        map_mat=map_mat, map_inv=np.linalg.inv(map_mat).astype(np.float32),
+        map_vec=np.asarray(translation, np.float32), brick_occ=occ,
+        brick_max=brick_max, brick_occ_dil=dil)
+
+
+def upload(host: dict, device) -> DenseGrid:
+    """``from_dense``'s copies: ``bricked``'s arrays to ``device``."""
+    return DenseGrid(**{k: torch.as_tensor(np.ascontiguousarray(a),
+                                           device=device)
+                        for k, a in host.items()})

@@ -5,22 +5,34 @@ A sparse file is parsed by the native library (grid/vdbio_native.py, C++)
 into a dense array on the host, which ``from_dense`` bricks and uploads.
 Export to .vdb, .nvdb and .npz goes the other way.  Every loader takes
 ``device`` (the GPU unless the caller asks for the CPU).
+
+Spans (utils.profiling): "grid.load" (a ``load`` call), and inside it
+"grid.load.read" (the native parse into the dense array, or numpy's),
+"grid.load.brick" (the brick padding and tables) and "grid.load.upload"
+(the copies to the device).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..utils import profiling
 from . import vdbio_native
-from .dense import DenseGrid, check_device, from_dense
+from .dense import DenseGrid, bricked, check_device, upload
 
 
-def _grid(dense, bbox_min, mat, vec, device) -> DenseGrid:
-    return from_dense(dense, bbox_min=bbox_min,
-                      map_mat=mat.astype(np.float32), translation=vec,
-                      device=device)
+def _grid(dense, bbox_min=(0, 0, 0), mat=None, vec=(0.0, 0.0, 0.0),
+          device="cuda") -> DenseGrid:
+    """``from_dense`` in two spans: the bricking, then the upload."""
+    with profiling.span("grid.load.brick"):
+        host = bricked(dense, bbox_min=bbox_min, translation=vec,
+                       map_mat=None if mat is None
+                       else np.asarray(mat).astype(np.float32))
+    with profiling.span("grid.load.upload"):
+        return upload(host, device)
 
 
+@profiling.spanned("grid.load")
 def load(path: str, grid_index: int = 0, *, device="cuda") -> DenseGrid:
     """Load a volume file into a DenseGrid: .vdb (OpenVDB), .nvdb
     (NanoVDB), .npy/.npz (dense arrays saved by this package)."""
@@ -31,13 +43,16 @@ def load(path: str, grid_index: int = 0, *, device="cuda") -> DenseGrid:
         return from_vdb(path, device=device)
     if lower.endswith(".npy"):
         check_device(device, "load")
-        return from_dense(np.load(path), device=device)
+        with profiling.span("grid.load.read"):
+            dense = np.load(path)
+        return _grid(dense, device=device)
     if lower.endswith(".npz"):
         check_device(device, "load")
-        with np.load(path) as z:
-            return from_dense(z["voxels"], bbox_min=z["bbox_min"],
-                              map_mat=z["map_mat"],
-                              translation=z["map_vec"], device=device)
+        with profiling.span("grid.load.read"), np.load(path) as z:
+            a = {k: z[k] for k in ("voxels", "bbox_min", "map_mat",
+                                   "map_vec")}
+        return _grid(a["voxels"], a["bbox_min"], a["map_mat"], a["map_vec"],
+                     device)
     raise ValueError(
         f"unsupported volume format: {path} (.vdb/.nvdb/.npy/.npz)"
     )
@@ -48,15 +63,18 @@ def from_vdb(path: str, grid_name: str | None = None, *,
     """Read an OpenVDB .vdb file (native reader subset: modern file
     versions, FloatGrid 5-4-3, none/zip/blosc codecs)."""
     check_device(device, "from_vdb")
-    dense, bbox_min, mat, vec, _name = vdbio_native.read_vdb(path, grid_name)
+    with profiling.span("grid.load.read"):
+        dense, bbox_min, mat, vec, _name = vdbio_native.read_vdb(path,
+                                                                 grid_name)
     return _grid(dense, bbox_min, mat, vec, device)
 
 
 def from_nvdb(path: str, grid_index: int = 0, *, device="cuda") -> DenseGrid:
     """Read a NanoVDB .nvdb file."""
     check_device(device, "from_nvdb")
-    dense, bbox_min, mat, vec, _name = vdbio_native.read_nvdb(path,
-                                                              grid_index)
+    with profiling.span("grid.load.read"):
+        dense, bbox_min, mat, vec, _name = vdbio_native.read_nvdb(
+            path, grid_index)
     return _grid(dense, bbox_min, mat, vec, device)
 
 

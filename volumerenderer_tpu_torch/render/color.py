@@ -45,7 +45,12 @@ Spans (utils.profiling): "color.march" (``build_view``: the uncached
 frame's and the slots view's full march), "color.build" (each device
 build, and each host-banded build in engine.session), "color.merge" (the
 settle's merge).  Counts (kind "march"): "color.march.kernel" and
-"color.march.ops", one a ``_march_planes`` call by its route.
+"color.march.ops", one a ``_march_planes`` call by its route.  Counts
+(kind "view"): "color.build.host" once a host-banded build and
+"color.build.band" once a band it builds (engine.session); for each frame
+shaded over a compact view whose ``live`` the build read,
+"color.shade.live" (the samples the gather reads) and "color.shade.held"
+(the plane samples the view holds), host integers fixed at the build.
 """
 
 from __future__ import annotations
@@ -99,6 +104,14 @@ class CompactView:
     n_rays: int
     rows: int
     caps: tuple = ()  # each band's march cap K_b (the host-banded build)
+    # The samples the gather reads, the sum of every band's ``lane_need``,
+    # where the build read it (the host-banded build); None elsewhere.
+    live: int | None = None
+
+    @property
+    def held(self) -> int:
+        """The plane samples the bands hold (lanes x padded cap)."""
+        return sum(b.weight.numel() for b in self.bands)
 
 
 def expand_compact_colors(compact_colors: torch.Tensor, view: CompactView):
@@ -565,6 +578,9 @@ def _ray_radiance(view, params, lights, algorithm, config, frame: int):
     shade = _shader(params, lights, algorithm, config, frame)
     if isinstance(view, ViewCache):
         return shade(view.wx, view.wy, view.wz, view.weight, "slots", None)
+    if view.live is not None:
+        profiling.count("view", "color.shade.live", view.live)
+        profiling.count("view", "color.shade.held", view.held)
     parts = [shade(b.wx, b.wy, b.wz, b.weight, "lanes", b.lane_need)
              for b in view.bands]
     return parts[0] if len(parts) == 1 else torch.cat(parts)
