@@ -28,7 +28,9 @@ Phases, each printed as one JSON line; any failure exits nonzero:
   5. main      the bench config (1920x1080 cloud(n=96), Point/VPL,
                camera (0, 20, -75), light (0, 20, 20)) through
                Renderer(..., device=DEV) in both gather tiers: step(8)
-               warm-up, then step(32) timed; kernel launches counted;
+               warm-up, then step(32) timed; kernel launches counted,
+               and the walk kernel's: one launch a tick, each on the
+               kernel route (the "walk" route counts), or it fails;
   6. shapes    the point kernel against its plain version on the live
                view's widest band and one frame's lights (the paired tier
                against the exact and the paired plain versions);
@@ -57,6 +59,15 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                and on the card (rtol 1e-6, or S x 2^-24 where more), and
                the samples weighted on one side only; kernel and plain ms,
                the plain version's launches, the byte bound;
+     walk      the photon-walk kernel (csrc/photon_walk.cu) against the
+               plain loop on the card, from one start state, at the cells'
+               walks: 8 frames of 16 photons at step 1 in the asset (the
+               bunny-class fog), the bench's cloud(n=96) and the
+               benchmark's cumulus stand-in, and 1 frame at the coarse drag
+               step 12: event counts and drops equal, positions within
+               1e-4, intensities within rtol 2e-6; kernel, generate_lights
+               and plain ms, each route's device launches, and the serial
+               bound (the longest photon's windows);
  11. uncached  the bench config with compact_view=False (the slots
                ViewCache) for POINT exact and paired, RAY discrete exact
                and paired, RAY analytic exact and paired, BEAM discrete
@@ -77,7 +88,8 @@ Phases, each printed as one JSON line; any failure exits nonzero:
  13. drag      the interactive viewer's setup at the bench config (RAY,
                motion_mode="coarse", first_frame_uncached, settle_chunks
                4): the first frame (warm), coarse drag frames (each
-               launching one march kernel), the settle
+               launching one march kernel and one walk kernel, or it
+               fails), the settle
                ticks, the merged view against a blocking rebuild (rtol
                2e-6), truncated drag frames (motion_cap 16), each drag
                path's view build alone, and
@@ -215,7 +227,10 @@ the march kernel's entries, march_planes[drag] with the launches of phase
 13's coarse drag frames, one a frame, and march_planes[slots_build] with
 those of phase 11's first view build, at the march phase's shapes (the
 lanes layout, which no run of the bench config launches, is in the march
-phase's line alone));
+phase's line alone); and the walk kernel's, photon_walk[<shape>], with
+the walk launches of phase 5's exact converging ticks (the step-1
+shapes) or of phase 13's coarse drag frames (the drag shape), at the walk
+phase's shapes);
 the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
 repository, it exits nonzero and prints no result.
@@ -451,7 +466,7 @@ def phase_build():
     from volumerenderer_tpu_torch.ops.kernels import _build
 
     names = ("gather_lanes", "gather_segments", "gather_vpu", "gather_many",
-             "march_planes")
+             "march_planes", "photon_walk")
     t0 = time.perf_counter()
     _build.build(names)  # one nvcc per source, started together
     dt = time.perf_counter() - t0
@@ -698,11 +713,14 @@ def bench_renderer(tier: str, algorithm, **config):
 
 def phase_main(tier: str):
     """The bench config in one tier, then the kernel against its plain
-    version on this run's live bands; returns the kernel's figures."""
+    version on this run's live bands; returns (the kernel's figures, the
+    walk kernel's launches over the measured frames, one a tick)."""
     import torch
 
     import volumerenderer_tpu_torch as vt
     from volumerenderer_tpu_torch.ops.kernels import gather_lanes as gl
+    from volumerenderer_tpu_torch.ops.kernels import photon_walk as pw
+    from volumerenderer_tpu_torch.utils import profiling
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -714,11 +732,15 @@ def phase_main(tier: str):
     frames = 32
     syncs0 = r.host_syncs
     gl.launches = 0
+    pw.launches["walk"] = 0
+    routes0 = profiling.totals()
     t0 = time.perf_counter()
     r.step(frames)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = gl.launches
+    walk_launches = pw.launches["walk"]
+    check_walks(tier, routes0, walk_launches, frames // r.frame_batch)
     img = r.state.accum
     checksum = float(img.double().sum())
     if not (bool(torch.isfinite(img).all()) and float(img.max()) > 0):
@@ -730,7 +752,7 @@ def phase_main(tier: str):
         mrays_per_s=BENCH_W * BENCH_H * frames / dt / 1e6,
         warmup_s=warm_s, accum_checksum=checksum,
         launches=launches, launches_per_frame=launches / frames,
-        view_exact=bool(r.view_exact),
+        walk_launches=walk_launches, view_exact=bool(r.view_exact),
         host_syncs_per_batch=(r.host_syncs - syncs0) / (frames / r.frame_batch),
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         bands=[tuple(b.wx.shape) for b in r._view.bands],
@@ -741,7 +763,25 @@ def phase_main(tier: str):
         fields["checksum_rel_diff_vs_tpu"] = (
             checksum - TPU_CHECKSUM) / TPU_CHECKSUM
     emit("main", **fields)
-    return dict(launches=launches, **phase_shapes(r, tier))
+    return dict(launches=launches, **phase_shapes(r, tier)), walk_launches
+
+
+def check_walks(label: str, before: dict, launches: int, calls: int):
+    """Fail unless ``calls`` generate_lights calls since the counts
+    ``before`` each took the kernel route and launched the walk kernel
+    once: "walk" counts at "photon.walk.kernel" and launches both
+    ``calls``, none at "photon.walk.plain"."""
+    from volumerenderer_tpu_torch.utils import profiling
+
+    after = profiling.totals()
+    routed = {site: after.get(("walk", site), 0) - before.get(("walk", site),
+                                                              0)
+              for site in ("photon.walk.kernel", "photon.walk.plain")}
+    if (routed["photon.walk.plain"] or calls < 1
+            or routed["photon.walk.kernel"] != calls or launches != calls):
+        raise AssertionError(f"{label}: {calls} walks wanted, one kernel "
+                             f"launch each; routes {routed}, launches "
+                             f"{launches}")
 
 
 def phase_shapes(r, tier: str):
@@ -1018,9 +1058,9 @@ def phase_slot_kernel():
     torch.cuda.empty_cache()
 
 
-def device_launches(fn) -> int:
-    """Device activities (kernels, copies, fills) one call of ``fn``
-    puts on the card, from a torch.profiler trace."""
+def device_events(fn):
+    """The device activities (kernels, copies, fills) that one call of
+    ``fn`` puts on the card, from a torch.profiler trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1028,8 +1068,25 @@ def device_launches(fn) -> int:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_launches(fn, reps: int = 1) -> int:
+    """Device activities one call of ``fn`` puts on the card: the most of
+    ``reps`` traced calls (a trace can miss an activity record, never add
+    one)."""
+    return max(len(device_events(fn)) for _ in range(reps))
+
+
+def device_ms(fn, name: str, reps: int = 10):
+    """Device ms of one kernel whose name holds ``name``, the mean over
+    ``reps`` traced calls of ``fn`` that each launch it once (a trace can
+    miss a record: the mean is over the launches caught); None if no
+    trace caught one."""
+    caught = [e.time_range.elapsed_us() for _ in range(reps)
+              for e in device_events(fn) if name in e.name]
+    return sum(caught) / len(caught) / 1e3 if caught else None
 
 
 def phase_march():
@@ -1106,6 +1163,123 @@ def phase_march():
         del got, want, w, wp
         torch.cuda.empty_cache()
     mp.launches["march"] = n0  # comparison launches are not main-path ones
+    return shapes
+
+
+WALK_SHAPES = (  # (name, volume, frames, step): the cells' walks
+    ("bunny", "bunny", 8, 1.0),
+    ("cloud96", "cloud96", 8, 1.0),
+    ("cumulus", "cumulus", 8, 1.0),
+    ("cloud96_drag", "cloud96", 1, 12.0),
+)
+
+
+def walk_volumes():
+    """The grids and lights of the walk phase: the asset (the bunny-class
+    fog), the bench's cloud(n=96) and the benchmark's cumulus stand-in
+    (portbench/configs/cumulus-half-1080p.json, seed 1)."""
+    import volumerenderer_tpu_torch as vt
+
+    bench = ROOT / "portbench"
+    spec = json.loads((bench / "configs" / "cumulus-half-1080p.json")
+                      .read_text())
+    sys.path.insert(0, str(bench))
+    from volumes import cumulus
+
+    dense = cumulus.generate(spec["volume"], 1, DEV).cpu().numpy()
+    vs = spec["volume"]
+    return {
+        "bunny": (vt.grid.from_dense(
+            make_volume(), bbox_min=ASSET_BBOX_MIN, voxel_size=ASSET_VOXEL,
+            translation=ASSET_TRANSLATION, device=DEV), ASSET_LIGHT),
+        "cloud96": (vt.grid.procedural.cloud(n=96, device=DEV),
+                    (0.0, 20.0, 20.0)),
+        "cumulus": (vt.grid.from_dense(
+            dense, bbox_min=vs["bbox_min"], voxel_size=vs["voxel_size"],
+            translation=vs["translation"], device=DEV),
+            tuple(spec["params"]["light_source_world_pos"])),
+    }
+
+
+def phase_walk(volumes=None):
+    """The photon-walk kernel (csrc/photon_walk.cu) against the plain loop
+    on the card at the cells' walks: 8 frames of 16 photons at the step 1
+    of the bunny, cloud96 and cumulus grids, and one frame at the coarse
+    drag step 12.  Both walk from one start state (render.photon.walk_start);
+    counts and drops equal, stored positions within 1e-4 and intensities
+    within rtol 2e-6.  Kernel ms (its device time, mean of 10 traced calls),
+    ms of the wrapper call (the kernel and the world conversion) and of all
+    of generate_lights, plain ms (the loop alone), device launches of each
+    route's generate_lights, and the serial bound: the windows of the
+    longest photon (the plain loop's window count) and its steps, at most
+    windows x Wn.  Returns each shape's fields by its name."""
+    import torch
+
+    import volumerenderer_tpu_torch as vt
+    from volumerenderer_tpu_torch.ops.kernels import photon_walk as pw
+    from volumerenderer_tpu_torch.render import color
+    from volumerenderer_tpu_torch.render import photon
+    from volumerenderer_tpu_torch.utils import profiling
+
+    volumes = volumes or walk_volumes()
+    n0 = pw.launches["walk"]
+    shapes = {}
+    for name, vol, frames, step in WALK_SHAPES:
+        grid, light = volumes[vol]
+        config = vt.StaticConfig()
+        params = vt.RenderParams.default().replace(
+            light_source_world_pos=light, ray_marching_step_size=step)
+        S = color.required_march_steps(grid, step, config.max_march_steps)
+        fcs = list(range(1, frames + 1))
+        lights = photon.generate_lights(grid, params, fcs, config,
+                                        max_steps=S)
+        args, kw = photon.walk_start(grid, params, fcs, config, S)
+        walk = lambda: pw.photon_walk(*args, **kw)
+        plain = lambda: pw.photon_walk_reference(*args, **kw)
+        gen = lambda: photon.generate_lights(grid, params, fcs, config,
+                                             max_steps=S)
+
+        def plain_gen():  # generate_lights with the plain loop
+            a, k = photon.walk_start(grid, params, fcs, config, S)
+            return photon.clamp_lights(*pw.photon_walk_reference(*a, **k),
+                                       params, config)
+        got, ms = cuda_timed(walk, reps=20)
+        _, gen_ms = cuda_timed(gen, reps=20)
+        syncs = profiling.totals().get(("sync", "photon.walk"), 0)
+        want, plain_ms = cuda_timed(plain, reps=3)
+        windows = (profiling.totals()[("sync", "photon.walk")]
+                   - syncs) // 3 - 1
+        gen_launches = device_launches(gen, reps=3)
+        kernel_ms = device_ms(walk, "walk_kernel")
+        plain_launches = device_launches(plain_gen, reps=3)
+        (ev, n, dr), (ev_w, n_w, dr_w) = ([t.cpu() for t in got],
+                                          [t.cpu() for t in want])
+        valid = torch.arange(ev.shape[1])[None, :] < n[:, None]
+        a, b = ev[valid], ev_w[valid]
+        same = bool(torch.equal(n, n_w) and torch.equal(dr, dr_w))
+        pos_err = float((a[:, :6] - b[:, :6]).abs().max()) if len(a) else 0.0
+        int_err = rel_err(a[:, 6], b[:, 6])
+        Wn = min(pw.WINDOW, S)
+        fields = dict(
+            photons=int(n.numel()), frames=frames, step=step, max_steps=S,
+            window=Wn, missed=int((~args[6]).sum()), stored=int(n.sum()),
+            lights=int(lights.count.sum()), dropped=int(dr.sum()),
+            kernel_ms=kernel_ms, ms=ms, generate_lights_ms=gen_ms,
+            plain_ms=plain_ms,
+            device_launches=gen_launches,
+            plain_device_launches=plain_launches,
+            longest_windows=windows, serial_steps_at_most=windows * Wn,
+            us_per_window=(None if kernel_ms is None
+                           else 1e3 * kernel_ms / max(windows, 1)),
+            counts_equal=same, max_pos_err=pos_err, max_int_rel_err=int_err,
+            positions_bit_equal=int((a[:, :6] == b[:, :6]).all(dim=1).sum()))
+        emit("walk", shape=name, **fields)
+        shapes[name] = fields
+        if not same or pos_err > 1e-4 or int_err > 2e-6:
+            raise AssertionError(f"walk kernel {name} vs plain: counts equal "
+                                 f"{same}, position err {pos_err:.3g}, "
+                                 f"intensity rel err {int_err:.3g}")
+    pw.launches["walk"] = n0  # comparison launches are not main-path ones
     return shapes
 
 
@@ -1310,7 +1484,7 @@ def phase_slot_shapes(r, algo_name, tier, mode, seg_tier, rule):
 def phase_drag():
     """The interactive viewer's setup at the bench config (RAY discrete):
     first frame, coarse drag, settle, truncated drag, decimation; returns
-    the march kernel's launches over the coarse drag frames."""
+    the march and walk kernels' launches over the coarse drag frames."""
     import numpy as np
     import torch
 
@@ -1318,9 +1492,11 @@ def phase_drag():
     from volumerenderer_tpu_torch.ops.kernels import gather_segments as gs
     from volumerenderer_tpu_torch.ops.kernels import gather_vpu as gv
     from volumerenderer_tpu_torch.ops.kernels import march_planes as mp
+    from volumerenderer_tpu_torch.ops.kernels import photon_walk as pw
     from volumerenderer_tpu_torch.render.color import (
         build_compact_view_device, build_view, required_march_steps,
     )
+    from volumerenderer_tpu_torch.utils import profiling
     from volumerenderer_tpu_torch.utils.ssim import ssim
 
     def timed(fn):
@@ -1354,12 +1530,17 @@ def phase_drag():
     fields["first_frame_march_launches"] = mp.launches["march"]
     fields["first_cached_frame_ms"] = timed(lambda: r.step(1))  # view build
     zero_counts()
-    drag_ms, drag_marches = [], []
-    for pos in positions:
+    pw.launches["walk"] = 0
+    drag_ms, drag_marches, drag_walks = [], [], []
+    for i, pos in enumerate(positions):
         r.set(camera_pos=pos)
         n0 = mp.launches["march"]
+        routes0 = profiling.totals()
+        w0 = pw.launches["walk"]
         drag_ms.append(timed(lambda: r.step(1)))
         drag_marches.append(mp.launches["march"] - n0)
+        drag_walks.append(pw.launches["walk"] - w0)
+        check_walks(f"drag frame {i}", routes0, drag_walks[-1], 1)
     coarse_launches = dict(gv.launches)
     if r.view_exact or coarse_launches["segment_discrete"] != len(positions):
         raise AssertionError("drag: coarse frames did not take the "
@@ -1369,6 +1550,7 @@ def phase_drag():
                              "march kernels, one each wanted")
     fields["coarse_drag_ms"] = drag_ms
     fields["coarse_march_launches"] = drag_marches
+    fields["coarse_walk_launches"] = drag_walks
     zero_counts()
     tick_ms = [timed(lambda: r.step(1)) for _ in range(4)]
     if not r.view_exact or len(r._view.bands) < 4:
@@ -1439,7 +1621,7 @@ def phase_drag():
         del rd
     emit("drag", **fields)
     torch.cuda.empty_cache()
-    return sum(drag_marches)
+    return sum(drag_marches), sum(drag_walks)
 
 
 def phase_goldens():
@@ -3132,7 +3314,8 @@ def main() -> int:
     phase_build()
     phase_kernel()
     phase_segment_kernel()
-    per_tier = {tier: phase_main(tier) for tier in ("exact", "paired")}
+    main_runs = {tier: phase_main(tier) for tier in ("exact", "paired")}
+    per_tier = {tier: v for tier, (v, _) in main_runs.items()}
     phase_sphere()
     segment_runs = []
     for run in RAYBEAM_RUNS:
@@ -3142,6 +3325,7 @@ def main() -> int:
         del r
     phase_slot_kernel()
     march_shapes = phase_march()
+    walk_shapes = phase_walk()
     march_launches = {}
     slot_runs = []
     for run in UNCACHED_RUNS:
@@ -3149,7 +3333,7 @@ def main() -> int:
         march_launches.setdefault("slots_build", build_marches)
         slot_runs.append((run, key, launches, phase_slot_shapes(r, *run)))
         del r
-    march_launches["drag"] = phase_drag()
+    march_launches["drag"], drag_walks = phase_drag()
     for run in PATH_RUNS:
         phase_path(*run)
     phase_path_drag()
@@ -3213,6 +3397,14 @@ def main() -> int:
             name=f"march_planes[{name}]", route="cuda",
             source="volumerenderer_tpu_torch/csrc/march_planes.cu",
             replaces=None, launches=launches, **march_shapes[name]))
+    for name, v in walk_shapes.items():
+        launches, run = (
+            (drag_walks, "coarse drag frames") if v["step"] != 1.0
+            else (main_runs["exact"][1], "main exact, converging ticks"))
+        kernels.append(dict(
+            name=f"photon_walk[{name}]", route="cuda",
+            source="volumerenderer_tpu_torch/csrc/photon_walk.cu",
+            replaces=None, launches=launches, launches_run=run, **v))
     kernels.extend(mesh_entries)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

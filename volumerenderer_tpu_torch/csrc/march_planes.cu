@@ -21,7 +21,8 @@
 //   * t_k = tmin + k * step and pos = o + d * t, each product rounded
 //     before the add (the build's -fmad=false keeps every product
 //     separate);
-//   * the nearest fetch at floor(pos), 0 outside the volume;
+//   * the nearest fetch at floor(pos), 0 outside the volume
+//     (nearest_fetch.cuh, shared with the photon walk);
 //   * atten = expf(-val * absorption * step), in that order, IEEE expf;
 //   * T, the transmittance before sample k, as a running product (torch's
 //     cumprod scan associates differently; the tests allow for that);
@@ -59,6 +60,8 @@
 #include <cuda_runtime.h>
 
 #include <climits>
+
+#include "nearest_fetch.cuh"
 
 namespace {
 
@@ -113,23 +116,6 @@ __device__ __forceinline__ void slab(const float o[3], const float inv[3],
   tmax = nan_min(far, nan_min(nan_min(h[0], h[1]), h[2]));
 }
 
-// grid.dense.DenseGrid.sample_nearest: the voxel at floor(p), 0 outside.
-// floor(p) converts to int64 as torch's .to(torch.int64) does; anything
-// beyond +-4e18 (or NaN) is far outside every volume.
-__device__ __forceinline__ float fetch(const Volume& v, const long long bm[3],
-                                       float x, float y, float z) {
-  const float f[3] = {floorf(x), floorf(y), floorf(z)};
-  const int n[3] = {v.nx, v.ny, v.nz};
-  long long r[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    if (!(f[c] >= -4.0e18f && f[c] < 4.0e18f)) return 0.0f;
-    r[c] = static_cast<long long>(f[c]) - bm[c];
-    if (r[c] < 0 || r[c] >= n[c]) return 0.0f;
-  }
-  return __ldg(v.vox + (r[0] * v.ny + r[1]) * v.nz + r[2]);
-}
-
 // One ray's march state: the clip, then sample after sample.
 struct Ray {
   float o[3], d[3];
@@ -180,7 +166,7 @@ struct Ray {
     if (live) {
       // The fetch is taken for every sample of a live ray, as the plain
       // version takes it: T after sample k feeds every later sample.
-      const float val = fetch(v, bm, x, y, z);
+      const float val = fetch_nearest(v.vox, v.nx, v.ny, v.nz, bm, x, y, z);
       if (t < tmax && T > kCutoff) w = T * val * m.step;
       T = T * expf(-val * m.absorption * m.step);
     }
