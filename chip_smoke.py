@@ -2150,6 +2150,7 @@ def phase_asset():
     from volumerenderer_tpu_torch.ops.kernels import gather_lanes as gl
     from volumerenderer_tpu_torch.ops.kernels import gather_segments as gs
     from volumerenderer_tpu_torch.render import photon
+    from volumerenderer_tpu_torch.render.color import device_build_ok
     from volumerenderer_tpu_torch.render.path import padded_rays, view_bytes
 
     def timed(fn):
@@ -2199,7 +2200,8 @@ def phase_asset():
     max_steps = r._max_steps
     _, view_steps = r._occupied_clip()
     steps = min(max_steps, view_steps)
-    if r._device_build_ok(steps):
+    if device_build_ok(r.config, steps, r._march_cell(),
+                       r.device_view_budget_bytes):
         raise AssertionError("asset: the 1080p view fits the device budget; "
                              "the host-banded build is not exercised")
     syncs0 = r.host_syncs
@@ -2576,6 +2578,7 @@ def phase_options_asset(g):
     import volumerenderer_tpu_torch as vt
     from volumerenderer_tpu_torch.ops.kernels import gather_lanes as gl
     from volumerenderer_tpu_torch.ops.kernels import gather_segments as gs
+    from volumerenderer_tpu_torch.render.color import device_build_ok
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -2591,7 +2594,8 @@ def phase_options_asset(g):
     max_steps = r._max_steps
     clip_box, view_steps = r._occupied_clip()
     steps = min(max_steps, view_steps)
-    if r._device_build_ok(steps):
+    if device_build_ok(r.config, steps, r._march_cell(),
+                       r.device_view_budget_bytes):
         raise AssertionError("options asset: the trilinear view fits the "
                              "device budget; the host-banded build is not "
                              "exercised")

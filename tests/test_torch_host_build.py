@@ -33,7 +33,6 @@ from volumerenderer_tpu.render import color as jcolor
 from volumerenderer_tpu.render import photon as jphoton
 import volumerenderer_tpu_torch as vt
 from volumerenderer_tpu_torch import convert
-from volumerenderer_tpu_torch.engine.step import band_from_planes
 from volumerenderer_tpu_torch.ops.kernels import march_planes as tmarch
 from volumerenderer_tpu_torch.render import color as tcolor
 from volumerenderer_tpu_torch.utils import profiling
@@ -101,7 +100,9 @@ def test_host_view_matches_jax(mode, gather_samples):
     view is inexact in both."""
     rj, rt = golden_pair(JAlgorithm.POINT, mode, gather_samples)
     steps = rj._max_steps
-    assert not rt._device_build_ok(min(steps, rt._occupied_clip()[1]))
+    assert not tcolor.device_build_ok(
+        rt.config, min(steps, rt._occupied_clip()[1]), rt._march_cell(),
+        rt.device_view_budget_bytes)
     vj = rj._current_view(steps)
     before = profiling.totals()
     vt_ = rt._current_view(rt._max_steps)
@@ -156,7 +157,8 @@ def test_host_build_matches_device_build(algorithm):
                                    rtol=1e-5, atol=1e-7, err_msg=name)
     r = vt.Renderer(grid, port_config(c), params)
     assert r.config.compact_build == "auto"
-    assert r._device_build_ok(r._max_steps)
+    assert tcolor.device_build_ok(r.config, r._max_steps, r._march_cell(),
+                                  r.device_view_budget_bytes)
 
 
 @pytest.mark.parametrize("algorithm", [JAlgorithm.POINT, JAlgorithm.RAY],
@@ -265,8 +267,8 @@ def test_band_from_planes_matches_jax(C):
     w = (rs.rand(N, C) * (rs.rand(N, C) < 0.4)).astype(np.float32)
     w[:10] = 0.0
     bj = band_from_planes_step(*[jnp.asarray(a) for a in (*planes, w)])
-    bt = band_from_planes(*[torch.as_tensor(a.T.copy())
-                            for a in (*planes, w)])
+    bt = tcolor.band_from_planes(*[torch.as_tensor(a.T.copy())
+                                   for a in (*planes, w)])
     assert bt.wx.shape[0] % 8 == 0
     for name in ("wx", "wy", "wz", "weight", "lane_need"):
         np.testing.assert_array_equal(getattr(bt, name).numpy(),

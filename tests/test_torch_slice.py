@@ -143,12 +143,8 @@ def test_camera_edit_rebuilds_view_light_edit_does_not(small):
 
 @pytest.mark.parametrize("name", ["PATH"])
 def test_unported_algorithms_raise(small, name):
-    """Algorithms not ported yet raise naming their ROADMAP item.  PATH
-    raised until it was ported: it now constructs, switches in and
-    renders, and no algorithm is left unported."""
-    from volumerenderer_tpu_torch.engine.params import UNPORTED_ALGORITHMS
-
-    assert UNPORTED_ALGORITHMS == {}
+    """PATH raised until it was ported: it now constructs, switches in
+    and renders."""
     algo = vt.Algorithm[name]
     small.step(1)
     small.set_algorithm(algo)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 import volumerenderer_tpu_torch as vt
+from volumerenderer_tpu_torch.render import color
 from volumerenderer_tpu_torch.utils import profiling
 
 
@@ -76,7 +77,11 @@ def test_host_build_waits_three_times(fresh):
     r = _renderer()
     clip_box, steps = r._occupied_clip()
     before = profiling.totals()
-    r._build_compact_view(clip_box, min(r._max_steps, steps))
+    color.build_compact_view(
+        r.grid, r.params, r.config, min(r._max_steps, steps),
+        clip_box=clip_box, march_cell=r._march_cell(),
+        device_budget_bytes=r.device_view_budget_bytes,
+        band_budget_bytes=r.view_build_budget_bytes)
     got = {site: n - before.get((kind, site), 0)
            for (kind, site), n in profiling.totals().items()
            if kind == "sync" and site.startswith("color.build")}
@@ -89,6 +94,35 @@ def test_device_build_counts_no_view_samples(fresh):
     r.step(2)
     assert r._view.live is None and not r._view.caps
     assert _view_counts() == {}
+
+
+def test_each_build_is_one_build_span(fresh):
+    """The host-banded build, the device build and one row chunk of a
+    settle are each one "color.build" span, none nested in another (the
+    per-layer readers sum the spans of that name)."""
+    def build_spans():
+        return [s.name for s in profiling.drain()["spans"]
+                if s.name == "color.build"]
+
+    profiling.record(True)
+    for build in ("host", "device"):
+        r = _renderer(build=build)
+        profiling.drain()
+        r.step(1)
+        assert build_spans() == ["color.build"], build
+        assert bool(r._view.caps) == (build == "host")
+    g, params = _scene()
+    r = vt.Renderer(g, vt.StaticConfig(width=48, height=32,
+                                       motion_mode="coarse", settle_chunks=2),
+                    params, algorithm=vt.Algorithm.POINT)
+    r.step(1)
+    r.set(camera_pos=(1.0, 0.0, -40.0))
+    r.step(1)  # a drag frame: the coarse uncached step, no build
+    profiling.drain()
+    r.step(1)  # the settle's first row chunk
+    profiling.record(False)
+    assert build_spans() == ["color.build"]
+    assert len(r._settle["views"]) == 1 and not r.view_exact
 
 
 @pytest.mark.parametrize("build", ["host", "device"])

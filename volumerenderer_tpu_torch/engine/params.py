@@ -25,20 +25,6 @@ class Algorithm(enum.IntEnum):
     PATH = 4
 
 
-# Algorithm -> the ROADMAP item that ports it; absent = ported.
-UNPORTED_ALGORITHMS: dict = {}
-
-
-def check_algorithm(algorithm: Algorithm) -> Algorithm:
-    algorithm = Algorithm(algorithm)
-    if algorithm in UNPORTED_ALGORITHMS:
-        raise NotImplementedError(
-            f"Algorithm.{algorithm.name} is not ported to PyTorch yet: "
-            f"{UNPORTED_ALGORITHMS[algorithm]}"
-        )
-    return algorithm
-
-
 class Fidelity(enum.Enum):
     """PATH single-light transmittance handling.
 

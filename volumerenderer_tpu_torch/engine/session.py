@@ -15,9 +15,10 @@ grid, view, lights and the accumulator live there.  The march is baked
 once per camera/volume/march parameters into a compact view (or, with
 ``compact_view=False``, a slots ViewCache) and reused by every frame;
 ``use_view_cache=False`` marches every frame (the uncached step).  The
-compact view is built on the device when its planes fit
-``device_view_budget_bytes``; larger views, ``compact_build="host"`` and
-``gather_samples`` > 0 take the host-banded build (``_build_compact_view``).
+compact view comes from ``render.color.build_compact_view``: on the device
+when its planes fit ``device_view_budget_bytes``; larger views,
+``compact_build="host"`` and ``gather_samples`` > 0 take the host-banded
+build, in bands of at most ``view_build_budget_bytes``.
 
 Interactive paths (``StaticConfig.motion_mode``): a frame whose camera or
 march parameters differ from the previous frame's is a drag frame and
@@ -51,18 +52,15 @@ from ..grid.dense import DenseGrid, occupied_bbox
 from ..ops.kernels.gather_lanes import TILE_L
 from ..ops.march import f32
 from ..render.color import (
-    CompactView, build_compact_view_device, build_view_rays,
-    camera_rays_index, decimate_view, merge_row_views,
-    occupancy_counts_rays, occupancy_gated, required_march_steps,
+    build_compact_view, build_compact_view_device, device_build_ok,
+    merge_row_views, required_march_steps,
 )
 from ..render.path import padded_rays, view_bytes
 from ..utils import profiling
-from .params import (
-    Algorithm, Fidelity, RenderParams, StaticConfig, check_algorithm,
-)
+from .params import Algorithm, Fidelity, RenderParams, StaticConfig
 from .state import RenderState
 from .step import (
-    bake_path_view_step, band_from_planes, build_view_step,
+    bake_path_view_step, build_view_step,
     render_path_step_cached,
     render_path_steps_cached, render_step, render_step_cached,
     render_steps_cached,
@@ -117,7 +115,7 @@ class Renderer:
         self._suppress_motion_once = False  # set by resize and grid swaps
         self.config = config or StaticConfig()
         self.params = params or RenderParams.default()
-        self.algorithm = check_algorithm(algorithm)
+        self.algorithm = Algorithm(algorithm)
         self.state = RenderState.create(self.config.height, self.config.width,
                                         self.device)
         self.lights = None
@@ -163,7 +161,7 @@ class Renderer:
     # ---- UI semantics ----
 
     def set_algorithm(self, algorithm: Algorithm) -> None:
-        algorithm = check_algorithm(algorithm)
+        algorithm = Algorithm(algorithm)
         if algorithm != self.algorithm:
             self.algorithm = algorithm
             self.state = self.state.refresh()
@@ -260,28 +258,6 @@ class Renderer:
             self._grid_token,
         )
 
-    def _device_build_ok(self, steps: int) -> bool:
-        """Whether the compact view may be built on the device: never for
-        ``compact_build="host"`` or with ``gather_samples``; always for
-        "device"; for "auto" when its planes fit the device budget."""
-        mode = self.config.compact_build
-        if mode == "host" or self.config.gather_samples:
-            return False
-        if mode == "device":
-            return True
-        n_rays = self.config.height * self.config.width
-        lanes_n = -(-n_rays // TILE_L) * TILE_L
-        cell = self._march_cell()
-        s_eff = -(-steps // cell) * cell if cell > 1 else steps
-        return lanes_n * s_eff * 16 <= self.device_view_budget_bytes
-
-    def _build_compact_view_device(self, clip_box, steps: int):
-        self.view_exact = True
-        return build_compact_view_device(
-            self.grid, self.params, self.config, steps, clip_box=clip_box,
-            march_cell=self._march_cell(),
-        )
-
     def _current_view(self, max_steps: int):
         """The baked view for the current camera/volume/march params,
         rebuilt when any of them changes (light edits do not rebuild)."""
@@ -297,96 +273,15 @@ class Renderer:
                 self._view = build_view_step(
                     self.grid, self.params, clip_box, config=self.config,
                     max_steps=steps, gather_samples=gs)
-            elif self._device_build_ok(steps):
-                self._view = self._build_compact_view_device(clip_box, steps)
             else:
-                self._view = self._build_compact_view(clip_box, steps)
+                self._view = build_compact_view(
+                    self.grid, self.params, self.config, steps,
+                    clip_box=clip_box, march_cell=self._march_cell(),
+                    device_budget_bytes=self.device_view_budget_bytes,
+                    band_budget_bytes=self.view_build_budget_bytes)
+                self.view_exact = self._view.exact
             self._view_key = key
         return self._view
-
-    @profiling.spanned("color.build")
-    def _build_compact_view(self, clip_box, steps: int) -> CompactView:
-        """The host-banded compact build:
-
-        1. camera rays, computed once and fed to both passes below; per-ray
-           occupancy counts from the dilated brick table at coarse cells
-           (none under trilinear or at march cell 1: every ray at the full
-           step budget);
-        2. on the host (one read), rays sorted by descending count, stable:
-           the lane order, ``inv_map`` and ``src``;
-        3. each band of sorted lanes marched at its own cap K_b (its first
-           lane's count rounded up to 16 steps, at least one cell, at most
-           ``steps``) and top-k to ``gather_samples`` below it, with as
-           many lanes as fit ``view_build_budget_bytes``;
-        4. one read of the lanes' live samples (``CompactView.live``).
-
-        Lanes past the hit rays (misses, and ray 0 repeated on views
-        narrower than TILE_L) are marched with the last band; ``inv_map``
-        points at hit lanes only, so their sums are never read."""
-        cfg = self.config
-        H, W = cfg.height, cfg.width
-        n_rays = H * W
-        cell = self._march_cell()
-        o_i, d_i = camera_rays_index(self.grid, self.params, cfg)
-        if occupancy_gated(cfg, cell):
-            profiling.count("sync", "color.build")
-            counts = occupancy_counts_rays(
-                self.grid, self.params, cfg, steps, o_i, d_i,
-                clip_box=clip_box, march_cell=cell).cpu().numpy()
-        else:
-            counts = np.full(n_rays, steps, np.int32)
-        order = np.argsort(-counts, kind="stable").astype(np.int32)
-        hit_n = max(1, int((counts > 0).sum()))
-        lanes_n = -(-hit_n // TILE_L) * TILE_L
-        order_l = order[:min(lanes_n, n_rays)]
-        if len(order_l) < lanes_n:
-            order_l = np.concatenate(
-                [order_l, np.zeros(lanes_n - len(order_l), np.int32)])
-        counts_l = np.where(np.arange(lanes_n) < hit_n, counts[order_l],
-                            0).astype(np.int32)
-        gs = self.config.gather_samples
-        self.view_exact = (not gs) or gs >= int(counts_l[0])
-        inv = np.full(n_rays, lanes_n, np.int32)
-        inv[order_l[:hit_n]] = np.arange(hit_n, dtype=np.int32)
-        # Both arrays in one copy to the device before the march, while the
-        # stream is idle after the counts' read.
-        profiling.count("sync", "color.build.upload")
-        both = torch.as_tensor(np.concatenate([order_l, inv]),
-                               device=self.device)
-        src, inv_map = both[:lanes_n], both[lanes_n:]
-        lane_rays = src.to(torch.int64)
-        profiling.count("view", "color.build.host")
-        bands, caps = [], []
-        startl = 0
-        while startl < lanes_n:
-            kb = min(max(-(-max(int(counts_l[startl]), 1) // 16) * 16, cell),
-                     steps)
-            plane_c = min(gs, kb) if gs else kb
-            max_lanes = max(TILE_L, (self.view_build_budget_bytes
-                                     // (max(plane_c, 1) * 16))
-                            // TILE_L * TILE_L)
-            size = min(lanes_n - startl, max_lanes)
-            idx = lane_rays[startl:startl + size]
-            planes = build_view_rays(
-                self.grid, self.params, cfg, steps, o_i[idx], d_i[idx],
-                gather_samples=gs if gs and gs < kb else 0,
-                clip_box=clip_box, occupied_cap=kb, march_cell=cell)
-            bands.append(band_from_planes(*planes))
-            profiling.count("view", "color.build.band")
-            caps.append(kb)
-            startl += size
-        view = CompactView(
-            bands=tuple(bands), inv_map=inv_map, src=src, n_rays=n_rays,
-            rows=H, caps=tuple(caps))
-        if cfg.gather_stride > 1:
-            view = decimate_view(view, int(cfg.gather_stride),
-                                 fold=cfg.gather_fold)
-        # The samples the gather will read.  With the one copy above, the
-        # build still waits on the card three times: counts, copy, this.
-        profiling.count("sync", "color.build.live")
-        view.live = int(torch.stack([b.lane_need.sum()
-                                     for b in view.bands]).sum())
-        return view
 
     # ---- interactive paths ----
 
@@ -456,7 +351,8 @@ class Renderer:
         if st is None or st["key"] != key:
             clip_box, view_steps = self._occupied_clip()
             steps = min(max_steps, view_steps)
-            if not self._device_build_ok(steps):
+            if not device_build_ok(self.config, steps, self._march_cell(),
+                                   self.device_view_budget_bytes):
                 self._settle = None
                 return True
             # Drop the stale view now (the chunks grow toward its size);

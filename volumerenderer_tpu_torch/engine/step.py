@@ -13,7 +13,6 @@ import numpy as np
 import torch
 
 from ..grid.dense import DenseGrid
-from ..ops.kernels.gather_lanes import lane_need_of
 from ..render import color as color_mod
 from ..render import path as path_mod
 from ..render import photon
@@ -64,17 +63,6 @@ def build_view_step(grid: DenseGrid, params: RenderParams, clip_box=None,
         grid, params, config, max_steps, row_start, num_rows,
         clip_box=clip_box, occupied_cap=occupied_cap, march_cell=march_cell,
         gather_samples=gather_samples)
-
-
-def band_from_planes(wx, wy, wz, w) -> color_mod.PlaneBand:
-    """Lane-major (C, N) ray-band planes (render.color.build_view_rays) ->
-    a PlaneBand: the sample axis zero-padded to a multiple of 8, and
-    ``lane_need`` from the weights themselves (last nonzero + 1), which is
-    tighter than the occupancy bound (no transmittance-cutoff tail, no
-    dilation slack) and what the lane kernels' per-block bounds follow."""
-    pad = color_mod.pad8
-    return color_mod.PlaneBand(wx=pad(wx), wy=pad(wy), wz=pad(wz),
-                               weight=pad(w), lane_need=lane_need_of(w))
 
 
 def render_step_cached(grid: DenseGrid, params: RenderParams,

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..convert import params_from_numpy
-from ..engine.params import RenderParams, check_algorithm
+from ..engine.params import Algorithm, RenderParams
 from ..engine.session import Renderer
 from ..engine.state import RenderState
 
@@ -56,7 +56,7 @@ def load(renderer: Renderer, path: str) -> Renderer:
             accum=torch.as_tensor(np.asarray(accum, np.float32),
                                   device=renderer.device),
             frame_count=int(z["frame_count"]))
-        renderer.algorithm = check_algorithm(int(z["algorithm"]))
+        renderer.algorithm = Algorithm(int(z["algorithm"]))
         renderer.params = params_from_numpy(
             {k[len("param_"):]: z[k] for k in z.files
              if k.startswith("param_")})

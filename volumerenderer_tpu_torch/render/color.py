@@ -22,8 +22,10 @@ so XLA's shapes stay static; here each band's maximum count is read on
 the host (one read per build) and the band marches at exactly that cap.
 The planes may be narrower than the reference build's; ``inv_map``,
 ``src``, ``lane_need`` and every plane value within ``lane_need`` agree.
-Views over the device budget are built band by band from the host's sort
-(engine.session ``_build_compact_view``) out of ``build_view_rays``.
+Views over the device budget, and top-k views, are built band by band
+from the host's sort (``build_compact_view_host``); ``build_compact_view``
+chooses between the two builds (``device_build_ok``), and both march
+their band plans through one loop (``_march_bands``).
 
   top-k (``gather_samples`` C below the march's samples): each ray keeps
     its C largest weights and their march distances, in the order of a
@@ -43,12 +45,12 @@ Views over the device budget are built band by band from the host's sort
 
 Spans (utils.profiling): "color.march" (``build_view``: the uncached
 frame's and the slots view's full march), "color.build" (each device
-build, and each host-banded build in engine.session), "color.merge" (the
-settle's merge).  Counts (kind "march"): "color.march.kernel" and
-"color.march.ops", one a ``_march_planes`` call by its route.  Counts
-(kind "view"): "color.build.host" once a host-banded build and
-"color.build.band" once a band it builds (engine.session); for each frame
-shaded over a compact view whose ``live`` the build read,
+build and each host-banded build), "color.merge" (the settle's merge).
+Counts (kind "march"): "color.march.kernel" and "color.march.ops", one a
+``_march_planes`` call by its route.  Counts (kind "view"):
+"color.build.host" once a host-banded build and "color.build.band" once a
+band it builds; for each frame shaded over a compact view whose ``live``
+the build read,
 "color.shade.live" (the samples the gather reads) and "color.shade.held"
 (the plane samples the view holds), host integers fixed at the build.
 """
@@ -107,6 +109,9 @@ class CompactView:
     # The samples the gather reads, the sum of every band's ``lane_need``,
     # where the build read it (the host-banded build); None elsewhere.
     live: int | None = None
+    # False where top-k dropped samples of some ray (the host-banded build
+    # with ``gather_samples`` below the busiest ray's count).
+    exact: bool = True
 
     @property
     def held(self) -> int:
@@ -260,6 +265,39 @@ def build_view(grid: DenseGrid, params: RenderParams, config: StaticConfig,
                      rows=rows)
 
 
+def device_build_ok(config: StaticConfig, steps: int, march_cell: int,
+                    budget_bytes: int) -> bool:
+    """Whether the compact view of the image may be built on the device:
+    never for ``compact_build="host"`` or with ``gather_samples``; always
+    for "device"; for "auto" when the planes of every ray at the global
+    cap (``steps`` rounded up to whole cells) fit ``budget_bytes``."""
+    mode = config.compact_build
+    if mode == "host" or config.gather_samples:
+        return False
+    if mode == "device":
+        return True
+    n_rays = config.height * config.width
+    lanes_n = -(-n_rays // TILE_L) * TILE_L
+    s_eff = -(-steps // march_cell) * march_cell if march_cell > 1 else steps
+    return lanes_n * s_eff * 16 <= budget_bytes
+
+
+def build_compact_view(grid: DenseGrid, params: RenderParams,
+                       config: StaticConfig, steps: int, *, clip_box,
+                       march_cell: int, device_budget_bytes: int,
+                       band_budget_bytes: int) -> CompactView:
+    """The compact view of the whole image: the device build where
+    ``device_build_ok``, else the host-banded build with bands of at most
+    ``band_budget_bytes``.  ``view.exact`` says whether it is exact."""
+    if device_build_ok(config, steps, march_cell, device_budget_bytes):
+        return build_compact_view_device(grid, params, config, steps,
+                                         clip_box=clip_box,
+                                         march_cell=march_cell)
+    return build_compact_view_host(grid, params, config, steps,
+                                   clip_box=clip_box, march_cell=march_cell,
+                                   band_budget_bytes=band_budget_bytes)
+
+
 @profiling.spanned("color.build")
 def build_compact_view_device(
     grid: DenseGrid,
@@ -298,69 +336,151 @@ def build_compact_view_device(
     clip_box = _clip_tensors(clip_box, dev)
     o_i, d_i = camera_rays_index(grid, params, config, row_start, num_rows)
     pad = lanes_n - n_rays
-    starts = list(range(0, lanes_n, band_lanes))
-
+    starts = range(0, lanes_n, band_lanes)
+    caps = [steps] * len(starts)
+    use_occ = False
     if order == "identity":
         inv_map = torch.arange(n_rays, dtype=torch.int32, device=dev)
         lane_live = torch.arange(lanes_n, device=dev) < n_rays
         order_p = torch.where(lane_live, torch.arange(lanes_n, device=dev), 0)
-        view = _march_bands(
-            grid, params, config, steps, o_i, d_i, order_p, lane_live,
-            starts, [steps] * len(starts), band_lanes, clip_box=clip_box,
-            march_cell=march_cell, skip_empty=False,
-            inv_map=inv_map, src=order_p.to(torch.int32), n_rays=n_rays,
-            rows=rows)
-        return _maybe_decimate(view, config)
-    if order != "occupancy":
+        src = order_p.to(torch.int32)
+    elif order != "occupancy":
         raise ValueError(f"unknown lane order: {order!r}")
-
-    use_occ = occupancy_gated(config, march_cell)
-    if use_occ:
-        counts = occupancy_counts_rays(
-            grid, params, config, steps, o_i, d_i,
-            clip_box=clip_box, march_cell=march_cell,
-        )
     else:
-        counts = torch.full((n_rays,), steps, dtype=torch.int32, device=dev)
-
-    ordr = torch.argsort(-counts, stable=True)
-    pos = torch.empty(n_rays, dtype=torch.int64, device=dev)
-    pos[ordr] = torch.arange(n_rays, device=dev)
-    hit = counts > 0
-    inv_map = torch.where(hit, pos, lanes_n).to(torch.int32)
-    order_p = torch.nn.functional.pad(ordr, (0, pad))
-    lane_live = torch.nn.functional.pad(hit[ordr], (0, pad))
-    src = torch.where(lane_live, order_p, 0).to(torch.int32)
-    if use_occ:
-        counts_sorted = torch.where(lane_live, counts[order_p], 0)
-        profiling.count("sync", "color.build")
-        caps = torch.stack(
-            [counts_sorted[s:s + band_lanes].max() for s in starts]
-        ).tolist()  # the one host read of the build
-    else:
-        caps = [steps] * len(starts)
+        use_occ = occupancy_gated(config, march_cell)
+        if use_occ:
+            counts = occupancy_counts_rays(
+                grid, params, config, steps, o_i, d_i,
+                clip_box=clip_box, march_cell=march_cell,
+            )
+        else:
+            counts = torch.full((n_rays,), steps, dtype=torch.int32,
+                                device=dev)
+        ordr = torch.argsort(-counts, stable=True)
+        pos = torch.empty(n_rays, dtype=torch.int64, device=dev)
+        pos[ordr] = torch.arange(n_rays, device=dev)
+        hit = counts > 0
+        inv_map = torch.where(hit, pos, lanes_n).to(torch.int32)
+        order_p = torch.nn.functional.pad(ordr, (0, pad))
+        lane_live = torch.nn.functional.pad(hit[ordr], (0, pad))
+        src = torch.where(lane_live, order_p, 0).to(torch.int32)
+        if use_occ:
+            counts_sorted = torch.where(lane_live, counts[order_p], 0)
+            profiling.count("sync", "color.build")
+            caps = torch.stack(
+                [counts_sorted[s:s + band_lanes].max() for s in starts]
+            ).tolist()  # the one host read of the build
+    # Fixed-width bands, every lane's samples kept.
+    plan = [(s, min(band_lanes, lanes_n - s), cap, 0)
+            for s, cap in zip(starts, caps)]
     view = _march_bands(
-        grid, params, config, steps, o_i, d_i, order_p, lane_live, starts,
-        caps, band_lanes, clip_box=clip_box, march_cell=march_cell,
-        skip_empty=use_occ, inv_map=inv_map, src=src, n_rays=n_rays,
-        rows=rows)
-    return _maybe_decimate(view, config)
+        grid, params, config, steps, o_i, d_i, order_p, lane_live, plan,
+        clip_box=clip_box, march_cell=march_cell, skip_empty=use_occ,
+        inv_map=inv_map, src=src, n_rays=n_rays, rows=rows)
+    return decimate_view(view, int(config.gather_stride),
+                         config.gather_fold)
+
+
+@profiling.spanned("color.build")
+def build_compact_view_host(grid: DenseGrid, params: RenderParams,
+                            config: StaticConfig, steps: int, *,
+                            clip_box=None, march_cell: int = 8,
+                            band_budget_bytes: int) -> CompactView:
+    """The host-banded compact build of the whole image:
+
+    1. camera rays, computed once and fed to both passes below; per-ray
+       occupancy counts from the dilated brick table at coarse cells
+       (none under trilinear or at march cell 1: every ray at the full
+       step budget);
+    2. on the host (one read), rays sorted by descending count, stable:
+       the lane order (``src``) and ``inv_map``, copied to the device in
+       one copy;
+    3. each band of sorted lanes marched at its own cap (``_host_bands``);
+    4. one read of the lanes' live samples (``CompactView.live``).
+
+    Lanes past the hit rays (misses, and ray 0 repeated on views
+    narrower than TILE_L) are marched with the last band; ``inv_map``
+    points at hit lanes only, so their sums are never read.  With top-k
+    below the busiest ray's count the view is inexact (``exact``)."""
+    H, W = config.height, config.width
+    n_rays = H * W
+    dev = grid.device
+    o_i, d_i = camera_rays_index(grid, params, config)
+    if occupancy_gated(config, march_cell):
+        profiling.count("sync", "color.build")
+        counts = occupancy_counts_rays(
+            grid, params, config, steps, o_i, d_i, clip_box=clip_box,
+            march_cell=march_cell).cpu().numpy()
+    else:
+        counts = np.full(n_rays, steps, np.int32)
+    order = np.argsort(-counts, kind="stable").astype(np.int32)
+    hit_n = max(1, int((counts > 0).sum()))
+    lanes_n = -(-hit_n // TILE_L) * TILE_L
+    order_l = order[:lanes_n]
+    if lanes_n > n_rays:  # lanes past the last ray hold ray 0
+        order_l = np.pad(order_l, (0, lanes_n - n_rays))
+    inv = np.full(n_rays, lanes_n, np.int32)
+    inv[order_l[:hit_n]] = np.arange(hit_n, dtype=np.int32)
+    # Both arrays in one copy to the device before the march, while the
+    # stream is idle after the counts' read.
+    profiling.count("sync", "color.build.upload")
+    both = torch.as_tensor(np.concatenate([order_l, inv]), device=dev)
+    src, inv_map = both[:lanes_n], both[lanes_n:]
+    profiling.count("view", "color.build.host")
+    gs = config.gather_samples
+    plan = _host_bands(counts, order, lanes_n, steps, march_cell, gs,
+                       band_budget_bytes)
+    view = _march_bands(
+        grid, params, config, steps, o_i, d_i, src.to(torch.int64), None,
+        plan, clip_box=clip_box, march_cell=march_cell, skip_empty=False,
+        inv_map=inv_map, src=src, n_rays=n_rays, rows=H,
+        caps=tuple(cap for _, _, cap, _ in plan),
+        exact=not gs or gs >= int(counts[order[0]]))
+    profiling.count("view", "color.build.band", len(plan))
+    view = decimate_view(view, int(config.gather_stride),
+                         config.gather_fold)
+    # The samples the gather will read.  With the one copy above, the
+    # build still waits on the card three times: counts, copy, this.
+    profiling.count("sync", "color.build.live")
+    view.live = int(torch.stack([b.lane_need.sum()
+                                 for b in view.bands]).sum())
+    return view
+
+
+def _host_bands(counts, order, lanes_n: int, steps: int, cell: int,
+                gather_samples: int, budget_bytes: int) -> list:
+    """The host-banded build's plan over ``lanes_n`` lanes, the rays
+    ``order`` sorted by descending ``counts`` (host arrays): each band's
+    cap K_b is its first lane's count rounded up to 16 steps, at least one
+    cell, at most ``steps``; top-k to ``gather_samples`` below K_b; as many
+    whole lane tiles as fit ``budget_bytes``.  A band starts below the
+    hit count, so its first lane is a hit ray."""
+    plan, s, gs = [], 0, gather_samples
+    while s < lanes_n:
+        kb = min(max(-(-max(int(counts[order[s]]), 1) // 16) * 16, cell),
+                 steps)
+        plane_c = min(gs, kb) if gs else kb
+        max_lanes = max(TILE_L, (budget_bytes // (max(plane_c, 1) * 16))
+                        // TILE_L * TILE_L)
+        size = min(lanes_n - s, max_lanes)
+        plan.append((s, size, kb, gs if gs and gs < kb else 0))
+        s += size
+    return plan
 
 
 def _march_bands(grid, params, config, steps, o_i, d_i, order_p, lane_live,
-                 starts, caps, band_lanes, *, clip_box, march_cell,
-                 skip_empty, **view_fields) -> CompactView:
-    """March each band of lanes ``order_p[s:s + band_lanes]`` at its cap,
-    the sample axis zero-padded to a multiple of 8 (the reference
-    package's band layout); with ``skip_empty`` a band of cap 0 (all
-    misses) is not marched."""
-    lanes_n = order_p.shape[0]
+                 plan, *, clip_box, march_cell, skip_empty,
+                 **view_fields) -> CompactView:
+    """March each band (start, width, cap, top-k) of ``plan``: the rays
+    ``order_p[start:start + width]`` at the band's cap, top-k to its
+    ``gather_samples`` (0 keeps every sample), lanes off ``lane_live`` at
+    zero weight (None keeps every lane's weights), then
+    ``band_from_planes``; with ``skip_empty`` a band of cap 0 (all misses)
+    is not marched."""
     dev = o_i.device
     bands = []
-    for s, cap in zip(starts, caps):
-        size = min(band_lanes, lanes_n - s)
+    for s, size, cap, top_k in plan:
         idx_b = order_p[s:s + size]
-        live_b = lane_live[s:s + size]
         if skip_empty and cap == 0:
             z = torch.zeros((0, size), dtype=torch.float32, device=dev)
             bands.append(PlaneBand(z, z, z, z, torch.zeros(
@@ -368,19 +488,24 @@ def _march_bands(grid, params, config, steps, o_i, d_i, order_p, lane_live,
             continue
         wx, wy, wz, w = build_view_rays(
             grid, params, config, steps, o_i[idx_b], d_i[idx_b],
-            clip_box=clip_box, occupied_cap=cap, march_cell=march_cell,
+            gather_samples=top_k, clip_box=clip_box, occupied_cap=cap,
+            march_cell=march_cell,
         )
-        w = torch.where(live_b[None, :], w, 0.0)
-        bands.append(PlaneBand(wx=pad8(wx), wy=pad8(wy), wz=pad8(wz),
-                               weight=pad8(w), lane_need=lane_need_of(w)))
+        if lane_live is not None:
+            w = torch.where(lane_live[s:s + size][None, :], w, 0.0)
+        bands.append(band_from_planes(wx, wy, wz, w))
     return CompactView(bands=tuple(bands), **view_fields)
 
 
-def _maybe_decimate(view: CompactView, config: StaticConfig) -> CompactView:
-    if config.gather_stride > 1:
-        return decimate_view(view, int(config.gather_stride),
-                             fold=config.gather_fold)
-    return view
+def band_from_planes(wx, wy, wz, w) -> PlaneBand:
+    """Lane-major (C, N) ray-band planes (``build_view_rays``) -> a
+    PlaneBand: the sample axis zero-padded to a multiple of 8 (the
+    reference package's band layout), and ``lane_need`` from the weights
+    themselves (last nonzero + 1), which is tighter than the occupancy
+    bound (no transmittance-cutoff tail, no dilation slack) and what the
+    lane kernels' per-block bounds follow."""
+    return PlaneBand(wx=pad8(wx), wy=pad8(wy), wz=pad8(wz), weight=pad8(w),
+                     lane_need=lane_need_of(w))
 
 
 def _runs(a: torch.Tensor, run: int) -> torch.Tensor:
@@ -483,7 +608,7 @@ def decimate_view(view: CompactView, stride: int,
     return CompactView(
         bands=tuple(fold_fn(b, stride) for b in view.bands),
         inv_map=view.inv_map, src=view.src, n_rays=view.n_rays,
-        rows=view.rows, caps=view.caps)
+        rows=view.rows, caps=view.caps, exact=view.exact)
 
 
 @profiling.spanned("color.merge")
